@@ -1,0 +1,58 @@
+"""Kernel layer of the PyTorch port: CUDA C++ kernels written by hand for
+Hopper (``csrc/*.cu``, built with ``nvcc`` for ``sm_90a`` at first use by
+``_build.py`` and loaded with ``ctypes``), one package per kernel holding
+its wrapper and its plain PyTorch version.
+
+A wrapper runs the plain version only for tensors on the CPU, where there
+is no kernel to launch; on CUDA tensors it launches the kernel or raises.
+Each wrapper adds one to its entry of ``LAUNCHES`` where it launches.
+"""
+from __future__ import annotations
+
+import torch
+
+KERNEL_FLAGS = ("auto", "on", "off")
+
+# wrapper name -> launches since the last reset_launch_counts()
+LAUNCHES: dict[str, int] = {"seg_waterfill": 0, "fw_minplus": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def resolve_kernel(flag: str, device) -> bool:
+    """Resolve an 'auto' | 'on' | 'off' selector to use-the-kernel.
+
+    * ``'auto'`` — the kernel on a CUDA device, the plain version on the
+      CPU;
+    * ``'on'``  — the kernel; raises on the CPU, which has no kernel and
+      no interpreter;
+    * ``'off'`` — the plain version (an explicit choice only).
+    """
+    if flag not in KERNEL_FLAGS:
+        raise ValueError(
+            f"kernel flag must be one of {KERNEL_FLAGS}, got {flag!r}")
+    on_cuda = torch.device(device).type == "cuda"
+    if flag == "on" and not on_cuda:
+        raise RuntimeError(
+            "kernel selector 'on' needs a CUDA device: the CUDA kernels "
+            "have no CPU interpreter (use 'auto' or 'off' on the CPU)")
+    if flag == "off":
+        return False
+    return on_cuda
+
+
+def check_cuda_tensor(name: str, t: torch.Tensor, dtype, shape) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
+    ``shape`` — what a kernel's C interface takes."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
