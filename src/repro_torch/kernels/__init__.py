@@ -14,7 +14,8 @@ import torch
 KERNEL_FLAGS = ("auto", "on", "off")
 
 # wrapper name -> launches since the last reset_launch_counts()
-LAUNCHES: dict[str, int] = {"seg_waterfill": 0, "fw_minplus": 0}
+LAUNCHES: dict[str, int] = {"seg_waterfill": 0, "fw_minplus": 0,
+                             "flash_attention": 0, "ssd_scan": 0}
 
 
 def reset_launch_counts() -> None:

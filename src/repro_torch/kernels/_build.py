@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("seg_waterfill", "fw_minplus")
+SOURCES = ("seg_waterfill", "fw_minplus", "flash_attention", "ssd_scan")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

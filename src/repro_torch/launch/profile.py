@@ -39,6 +39,22 @@ def _device_us(evt, self_only: bool) -> float:
     return float(getattr(evt, name, getattr(evt, legacy, 0.0)) or 0.0)
 
 
+def device_summary(events, exclude=()):
+    """(kernel launches, {device event name: [ms, count]}, device ms) of a
+    profiler's raw events.  Device time comes from the device-side events
+    alone (kernels, memcpy, memset): the aten ops' own device times are
+    these same kernels.  ``exclude`` names ranges whose device-side twins
+    are not kernels."""
+    launches = sum(1 for e in events if e.name in LAUNCH_CALLS)
+    kernels: dict[str, list] = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name not in exclude:
+            k = kernels.setdefault(e.name, [0.0, 0])
+            k[0] += e.time_range.elapsed_us() / 1e3
+            k[1] += 1
+    return launches, kernels, sum(ms for ms, _ in kernels.values())
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--hosts", type=int, default=2000)
@@ -87,16 +103,7 @@ def main(argv=None) -> None:
             phase_us[e.name] += e.cpu_time_total
     phases = {p: round(us / 1e3 / args.ticks, 3)
               for p, us in phase_us.items()}
-    launches = sum(1 for e in events if e.name in LAUNCH_CALLS)
-    # device time from the device-side events alone (kernels, memcpy,
-    # memset): the aten ops' own device times are these same kernels
-    kernels: dict[str, list] = {}
-    for e in events:
-        if e.device_type == DeviceType.CUDA and e.name not in PHASES:
-            k = kernels.setdefault(e.name, [0.0, 0])
-            k[0] += e.time_range.elapsed_us() / 1e3
-            k[1] += 1
-    device_ms = sum(ms for ms, _ in kernels.values())
+    launches, kernels, device_ms = device_summary(events, exclude=PHASES)
     top = sorted(((n, ms, c) for n, (ms, c) in kernels.items()),
                  key=lambda r: -r[1])[:12]
     ops = sorted(((e.key, _device_us(e, True) / 1e3, e.count)

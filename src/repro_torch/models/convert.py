@@ -1,0 +1,36 @@
+"""Parameter trees from the JAX package into the port.
+
+``params_from_jax`` takes the JAX model's parameter tree as numpy arrays
+(``jax.tree.map(np.asarray, params)``; no JAX import here) and returns the
+port's tree: the same nested dict under the same names, with stacked
+[L, ...] layer leaves.  The leaves the JAX code casts to bf16 at every use
+(``embed``, ``unembed``, ``wq/wk/wv/wo``, the QKV biases,
+``w_gate/w_up/w_down``, ``in_proj`` and ``out_proj``;
+``transformer.BF16_LEAVES``) are stored in bf16 once, which is exact
+because the cast is the same rounding; every other leaf (norm weights,
+``conv_w``/``conv_b``, ``A_log``, ``D``, ``dt_bias``) stays f32.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.types import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import (cast_bf16_leaves,
+                                            check_supported, map_leaves)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bf16: exact via f32
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_jax(tree, cfg: ModelConfig, device=None):
+    """The port's parameter tree for ``cfg`` from JAX's ``tree`` (nested
+    dicts of numpy arrays)."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    return cast_bf16_leaves(map_leaves(lambda a: _tensor(a, device), tree))
