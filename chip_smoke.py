@@ -4,20 +4,25 @@
 
 Phases, in order, each of which fails the script when it fails:
   1. build the four CUDA kernels from src/repro_torch/kernels/csrc/ (one
-     nvcc per source, started together);
+     nvcc per source, started together) and print ptxas's registers,
+     static shared memory and spills for the two LM kernels' entry points;
   2. hold the simulator's kernels against their plain PyTorch versions on
      the card, at the main path's shapes and at an edge shape, and time
-     both (CUDA events, median of 20 launches after warm-up):
+     both (CUDA events around 10 back-to-back launches, median of 3 such
+     runs after warm-up):
      seg_waterfill rates bit for bit and load within rtol 2e-6;
      fw_minplus bit for bit on dyadic weights, rtol 1e-5 otherwise;
-  3. the same for the LM kernels: flash_attention at the zamba2-1.2b
-     prefill shape, a qwen2.5-3b GQA shape (Hq 16, Hkv 2, D 128) and an
-     edge shape (S below one tile, MQA, f32) — on bf16 outputs every
-     element within 2 bf16 ulps of the plain version's plus 1e-5, a limit
-     that the same attention with p or the PV accumulator rounded to bf16
-     must miss at the zamba2 shape (the controls); rtol/atol 1e-5 on f32
-     — with SDPA timed beside it as the library yardstick; ssd_scan at
-     the zamba2-1.2b shape, the mamba2-1.3b shape (N 128) and a one-chunk
+  3. the same for the LM kernels, printing for each shape the variant
+     that ran and its CUDA launches per call: flash_attention at the
+     zamba2-1.2b prefill shape, a qwen2.5-3b GQA shape (Hq 16, Hkv 2,
+     D 128), an edge shape (S below one tile, MQA, f32), a ragged S on the
+     tensor-core variant (S 1000) and bf16 at D 32 on the FP32-pipe
+     variant — on bf16 outputs every element within 2 bf16 ulps of the
+     plain version's plus 1e-5, a limit that the same attention with p or
+     the PV accumulator rounded to bf16 must miss at the zamba2 shape (the
+     controls); rtol/atol 1e-5 on f32 — timed at the zamba2 and qwen2.5
+     shapes with SDPA beside it as the library yardstick; ssd_scan at the
+     zamba2-1.2b shape, the mamba2-1.3b shape (N 128) and a one-chunk
      ragged edge — within rtol/atol 1e-4;
   4. the paper experiment: the six policies at 20 hosts / 300 containers,
      horizon 120, kernels 'auto', each completing 300/300 and agreeing
@@ -54,6 +59,7 @@ import dataclasses
 import importlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -86,6 +92,8 @@ from repro_torch.kernels.fw_minplus import (floyd_warshall,  # noqa: E402
 from repro_torch.kernels.seg_waterfill import (seg_waterfill,  # noqa: E402
                                                seg_waterfill_ref)
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     BF16_ATOL, BF16_ULPS, bf16_limit_share, flash_attention,
     flash_attention_ref)
@@ -95,13 +103,15 @@ from repro_torch.models import transformer  # noqa: E402
 
 DEV = torch.device("cuda")
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, the FP32 rate
-# outside the tensor cores (the simulator's kernels and ssd_scan compute
-# in f32 on f32 inputs) and the dense bf16 tensor-core rate (the type of
+# outside the tensor cores (the simulator's kernels compute in f32), the
+# dense TF32 tensor-core rate (ssd_scan's f32 inputs, whose products run
+# on the tensor cores) and the dense bf16 tensor-core rate (the type of
 # flash_attention's inputs on the model path)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_TF32_PER_S = 495e12
 PEAK_BF16_PER_S = 989e12
-REPS = 20
+REPS = 10
 MODEL_ULPS = 4   # reduced serve, card against CPU (see phase 6)
 FULL_ULPS = 8    # full-width prefill, kernels against plain versions
 
@@ -110,20 +120,25 @@ def log(*a):
     print(*a, flush=True)
 
 
-def time_ms(fn, reps=REPS, warm=3) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` CUDA-event-timed calls."""
+def time_ms(fn, reps=REPS, warm=3, runs=3) -> float:
+    """Milliseconds per call of ``fn``: CUDA events around ``reps``
+    back-to-back calls, divided by ``reps``; the median of ``runs`` such
+    runs.  Back to back, the host enqueues ahead of the device, so this is
+    the device's time per call, as on the model path, where the device is
+    busy while the host launches."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -131,6 +146,35 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops=PEAK_FP32_PER_S):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / peak_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_report(name):
+    """One line per tensor-core entry point of kernel ``name``'s build in
+    this process (not the FP32-pipe flash_fwd_fp32), from ptxas's
+    ``-Xptxas -v`` report: registers, static shared memory (the kernels
+    take theirs dynamically, at launch), stack and spills."""
+    out, label = {}, None
+    for line in _build.BUILD_LOGS.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '\S*?((?:flash_fwd|ssd)_"
+                      r"[a-z0-9]+?)(?:I(.*?)EE)?E", line)
+        if m:
+            args = (m.group(2) or "").replace("13__nv_bfloat16", "bf16,")
+            args = re.sub(r"^f", "float,", args).replace("Li", "")
+            label = m.group(1) + (f"<{args.strip(',')}>" if args else "")
+            if not label.startswith("flash_fwd_fp32"):
+                out[label] = []
+            continue
+        if label not in out:
+            continue
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[label].insert(0, f"{regs.group(1)} registers, "
+                                 f"{smem.group(1) if smem else 0} bytes "
+                                 f"static smem")
+        elif "spill" in line:
+            out[label].append(line.strip())
+    return [f"{k}: {', '.join(v)}" for k, v in out.items()]
 
 
 # ---------------------------------------------------------------------------
@@ -331,34 +375,39 @@ def attention_low_precision(q, k, v, causal=True, scale=None, round_p=True,
 def check_lm_kernels():
     rows = {}
     errs = []
-    main = None
+    main = {}
     for name, shape, dtype in (
             ("zamba2-1.2b B=4 S=2048 Hq=Hkv=32 D=64 bf16",
              (4, 2048, 32, 32, 64), torch.bfloat16),
             ("qwen2.5-3b B=4 S=2048 Hq=16 Hkv=2 D=128 bf16",
              (4, 2048, 16, 2, 128), torch.bfloat16),
             ("edge B=2 S=40 Hq=8 Hkv=1 D=64 f32", (2, 40, 8, 1, 64),
-             torch.float32)):
+             torch.float32),
+            ("ragged B=1 S=1000 Hq=Hkv=4 D=64 bf16", (1, 1000, 4, 4, 64),
+             torch.bfloat16),
+            ("D=32 B=2 S=256 Hq=4 Hkv=2 bf16", (2, 256, 4, 2, 32),
+             torch.bfloat16)):
         q, k, v = flash_inputs(*shape, dtype, seed=len(errs) + 10)
         ok = flash_attention(q, k, v)
         with reference_mode():
             op = flash_attention_ref(q, k, v)
         torch.cuda.synchronize()
         errs.append((ok.float() - op.float()).abs().max().item())
+        how = (f"variant {fa_mod.variant(dtype, shape[4])}, "
+               f"{fa_mod.CUDA_LAUNCHES_PER_CALL} CUDA launch per call")
         if dtype == torch.bfloat16:
             share = bf16_limit_share(ok, op)
             if share > 1:
                 raise AssertionError(f"flash_attention {name}: {share:.3g} "
                                      f"of the bf16 limit")
-            log(f"flash_attention {name}: within {BF16_ULPS} bf16 ulps + "
-                f"{BF16_ATOL} of the plain version (max |err| "
+            log(f"flash_attention {name} ({how}): within {BF16_ULPS} bf16 "
+                f"ulps + {BF16_ATOL} of the plain version (max |err| "
                 f"{errs[-1]:.3g}, {share:.3f} of the limit)")
         else:
             torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-5)
-            log(f"flash_attention {name}: within rtol/atol 1e-5 of the "
-                f"plain version (max |err| {errs[-1]:.3g})")
-        if main is None:
-            main = (shape, (q, k, v))
+            log(f"flash_attention {name} ({how}): within rtol/atol 1e-5 of "
+                f"the plain version (max |err| {errs[-1]:.3g})")
+        if not main:
             with reference_mode():
                 for what, kw in (("p", dict(round_p=True)),
                                  ("PV accumulator", dict(round_p=False,
@@ -370,22 +419,27 @@ def check_lm_kernels():
                                              f"attention with bf16 {what}")
                     log(f"flash_attention {name} control, {what} rounded "
                         f"to bf16: {share:.3f} of the limit (must exceed 1)")
-    shape, (q, k, v) = main
-    ms = time_ms(lambda: flash_attention(q, k, v))
-    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-    with reference_mode():
-        plain = time_ms(lambda: flash_attention_ref(q, k, v))
-        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
-    b, by = bound_ms(*flash_work(*shape, elem=2), peak_ops=PEAK_BF16_PER_S)
-    log(f"flash_attention {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms,"
-        f" SDPA {lib:.4f} ms, bound {b:.6f} ms ({by})")
-    rows["flash_attention"] = dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/flash_attention.py:101",
-        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b,
-        bound_by=by, library_ms=lib)
+        if len(main) < 2:             # timed: the zamba2 and qwen2.5 shapes
+            main[name] = (shape, (q, k, v))
+    for i, (name, (shape, (q, k, v))) in enumerate(main.items()):
+        ms = time_ms(lambda: flash_attention(q, k, v))
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        with reference_mode():
+            plain = time_ms(lambda: flash_attention_ref(q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True))
+        b, by = bound_ms(*flash_work(*shape, elem=2), peak_ops=PEAK_BF16_PER_S)
+        log(f"flash_attention {name}: kernel {ms:.4f} ms, plain {plain:.4f} "
+            f"ms, SDPA {lib:.4f} ms, bound {b:.6f} ms ({by})")
+        if i == 0:
+            rows["flash_attention"] = dict(
+                name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/"
+                         "flash_attention.py:101",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=lib)
 
     errs = []
     main = None
@@ -404,15 +458,19 @@ def check_lm_kernels():
         torch.testing.assert_close(hk, hp, rtol=1e-4, atol=1e-4)
         errs.append(max((yk - yp).abs().max().item(),
                         (hk - hp).abs().max().item()))
-        log(f"ssd_scan {name}: within rtol/atol 1e-4 of the plain version "
-            f"(max |err| {errs[-1]:.3g})")
+        share = max(((a - r).abs() / (1e-4 + 1e-4 * r.abs())).max().item()
+                    for a, r in ((yk, yp), (hk, hp)))
+        log(f"ssd_scan {name} (3xbf16 chunk passes, "
+            f"{ssd_mod.CUDA_LAUNCHES_PER_CALL} CUDA launches per call): "
+            f"within rtol/atol 1e-4 of the plain version (max |err| "
+            f"{errs[-1]:.3g}, {share:.3f} of the limit)")
         if main is None:
             main = (shape, ins)
     shape, ins = main
     ms = time_ms(lambda: ssd_scan(*ins, shape[5]))
     with reference_mode():
         plain = time_ms(lambda: ssd_scan_ref(*ins, shape[5]))
-    b, by = bound_ms(*ssd_work(*shape))
+    b, by = bound_ms(*ssd_work(*shape), peak_ops=PEAK_TF32_PER_S)
     log(f"ssd_scan {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
         f"bound {b:.6f} ms ({by})")
     rows["ssd_scan"] = dict(
@@ -683,6 +741,9 @@ def main():
     t0 = time.time()
     _build.build()
     log(f"built kernels {list(_build.SOURCES)} in {time.time() - t0:.2f} s")
+    for name in ("flash_attention", "ssd_scan"):
+        for line in ptxas_report(name):
+            log(f"ptxas {name}: {line}")
 
     torch.use_deterministic_algorithms(True)
     # f32 products in full f32 and bf16 GEMMs summed in f32, as the JAX

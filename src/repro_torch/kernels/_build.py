@@ -7,10 +7,12 @@ first use into its own shared library,
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
 and loaded with ``ctypes``.  No PyTorch header is included, so a build
-takes seconds.  The library name carries a hash of the source, so an
-edited source is rebuilt; the build directory (``kernels/build/``) is
-listed in ``.gitignore``.  ``--use_fast_math`` is deliberately absent: the
-kernels must round as the plain versions do.
+takes seconds.  ``-Xptxas -v`` makes ptxas report each kernel's
+registers, shared memory and spills; :data:`BUILD_LOGS` keeps that output
+of the builds this process ran.  The library name carries a hash of the
+source, so an edited source is rebuilt; the build directory
+(``kernels/build/``) is listed in ``.gitignore``.  ``--use_fast_math`` is
+deliberately absent: the kernels must round as the plain versions do.
 """
 from __future__ import annotations
 
@@ -24,10 +26,11 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("seg_waterfill", "fw_minplus", "flash_attention", "ssd_scan")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+BUILD_LOGS: dict[str, str] = {}    # kernel name -> nvcc's output
 
 
 def _nvcc() -> str:
@@ -64,6 +67,7 @@ def build(names=SOURCES) -> None:
     errors = []
     for name, (proc, tmp, out) in jobs.items():
         log, _ = proc.communicate()
+        BUILD_LOGS[name] = log
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             tmp.unlink(missing_ok=True)

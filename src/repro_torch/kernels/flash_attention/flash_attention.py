@@ -22,6 +22,8 @@ import torch
 from repro_torch.kernels import LAUNCHES, check_cuda_tensor
 
 HEAD_DIMS = (16, 32, 64, 128)   # the kernel's template instances
+WGMMA_HEAD_DIMS = (64, 128)     # the tensor-core variant's, on bf16
+CUDA_LAUNCHES_PER_CALL = 1
 NEG_INF = -1e30
 BF16_ULPS = 2
 BF16_ATOL = 1e-5
@@ -55,11 +57,20 @@ def flash_attention_ref(q, k, v, causal: bool = True, scale=None):
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+def variant(dtype, D: int) -> str:
+    """The kernel variant a CUDA call runs, by input type and head dim
+    alone: ``'wgmma'`` (TMA ring, bf16 tensor cores, p split into two bf16
+    parts) for bf16 with D in ``WGMMA_HEAD_DIMS``, else ``'fp32'`` (the
+    FP32-pipe kernel)."""
+    return "wgmma" if (dtype == torch.bfloat16
+                       and D in WGMMA_HEAD_DIMS) else "fp32"
+
+
 def _lib():
     from repro_torch.kernels import _build
     fn = _build.load("flash_attention").flash_attention_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -68,7 +79,8 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
     """Attention of q [B,S,Hq,D] over k/v [B,S,Hkv,D] (self-attention:
     Sq = Skv), output [B,S,Hq,D] in ``q.dtype``.  CPU tensors run
     :func:`flash_attention_ref`; CUDA tensors launch the kernel on the
-    current stream (bf16 or f32, D in ``HEAD_DIMS``, contiguous)."""
+    current stream (bf16 or f32, D in ``HEAD_DIMS``, contiguous): the
+    variant :func:`variant` names for the type and D, one CUDA launch."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal, scale)
     B, S, Hq, D = q.shape
@@ -88,6 +100,7 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  B, S, Hq, Hkv, D, int(causal), scale,
                  int(q.dtype == torch.bfloat16),
+                 int(variant(q.dtype, D) == "wgmma"),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")

@@ -15,7 +15,10 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, check_cuda_tensor
 
-MAX_HEAD_DIM = 64          # P: one 64-column output tile per thread block
+MAX_HEAD_DIM = 64   # P: one 64-column output tile per thread block
+MAX_CHUNK = 256     # Q: at most four 64-row q tiles per chunk
+# cum, C.B^T, chunk states, state passing, output
+CUDA_LAUNCHES_PER_CALL = 5
 F32 = torch.float32
 
 
@@ -65,7 +68,7 @@ def ssd_scan_ref(xs, Bm, Cm, dt, A_log, Q: int = 256):
 def _lib():
     from repro_torch.kernels import _build
     fn = _build.load("ssd_scan").ssd_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -73,16 +76,19 @@ def _lib():
 
 def ssd_scan(xs, Bm, Cm, dt, A_log, Q: int = 256):
     """SSD chunk scan from a zero state.  CPU tensors run
-    :func:`ssd_scan_ref`; CUDA tensors launch the kernel on the current
-    stream (all f32 and contiguous, P <= ``MAX_HEAD_DIM``)."""
+    :func:`ssd_scan_ref`; CUDA tensors launch the kernel's passes on the
+    current stream (all f32 and contiguous, P <= ``MAX_HEAD_DIM``, P and N
+    multiples of 4, chunk Q <= ``MAX_CHUNK``), with their scratch allocated
+    here."""
     if xs.device.type == "cpu":
         return ssd_scan_ref(xs, Bm, Cm, dt, A_log, Q)
     B, S, H, P = xs.shape
     N = Bm.shape[-1]
     Q = min(Q, S)
-    if P > MAX_HEAD_DIM:
-        raise ValueError(f"ssd_scan head dim must be <= {MAX_HEAD_DIM}, "
-                         f"got {P}")
+    if P > MAX_HEAD_DIM or P % 4 or N % 4 or Q > MAX_CHUNK:
+        raise ValueError(f"ssd_scan takes P <= {MAX_HEAD_DIM}, P and N "
+                         f"multiples of 4 and Q <= {MAX_CHUNK}, got P={P}, "
+                         f"N={N}, Q={Q}")
     check_cuda_tensor("xs", xs, F32, (B, S, H, P))
     check_cuda_tensor("Bm", Bm, F32, (B, S, N))
     check_cuda_tensor("Cm", Cm, F32, (B, S, N))
@@ -90,9 +96,14 @@ def ssd_scan(xs, Bm, Cm, dt, A_log, Q: int = 256):
     check_cuda_tensor("A_log", A_log, F32, (H,))
     y = torch.empty_like(xs)
     h = torch.empty((B, H, P, N), dtype=F32, device=xs.device)
+    # the passes' scratch: cum [B,Cn,H,Qp], C.B^T [B,Cn,Qp,Qp] and the
+    # chunk states [B,Cn,H,P,N], Cn chunks of Qp = Q rounded up to 64
+    Cn, Qp = -(-S // Q), -(-Q // 64) * 64
+    scratch = torch.empty(B * Cn * (H * Qp + Qp * Qp + H * P * N),
+                          dtype=F32, device=xs.device)
     err = _lib()(xs.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
                  A_log.data_ptr(), y.data_ptr(), h.data_ptr(),
-                 B, S, H, P, N, Q,
+                 scratch.data_ptr(), B, S, H, P, N, Q,
                  torch.cuda.current_stream(xs.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch at N={N}, Q={Q} failed: CUDA "

@@ -31,7 +31,8 @@ from repro_torch.launch.serve import prompt_batch
 from repro_torch.models import transformer
 from repro_torch.serve.step import decode_loop, start
 
-OURS = ("ssd_scan_kernel", "flash_fwd", "seg_waterfill", "fw_phase")
+OURS = ("ssd_cum", "ssd_cb", "ssd_state", "ssd_pass", "ssd_out",
+        "flash_fwd", "seg_waterfill", "fw_phase")
 GEMM = ("gemm", "xmma", "cutlass", "nvjet", "gemv")
 
 

@@ -233,7 +233,14 @@ def test_cuda_flash_attention_matches_plain_version():
             (2, 200, 4, 4, 64, True, "float32"),      # ragged last tile
             (1, 256, 15, 5, 64, True, "bfloat16"),
             (2, 128, 4, 1, 128, False, "float32"),
-            (1, 40, 4, 2, 16, True, "bfloat16")]:
+            (1, 40, 4, 2, 16, True, "bfloat16"),
+            # chip_smoke.py's phase 3 shapes: zamba2-1.2b, qwen2.5-3b GQA,
+            # a ragged S on the tensor-core variant, D 32 on the FP32 one
+            (4, 2048, 32, 32, 64, True, "bfloat16"),
+            (4, 2048, 16, 2, 128, True, "bfloat16"),
+            (2, 40, 8, 1, 64, True, "float32"),
+            (1, 1000, 4, 4, 64, True, "bfloat16"),
+            (2, 256, 4, 2, 32, True, "bfloat16")]:
         td = getattr(torch, dtype)
         q, k, v = (torch.tensor(a, device=dev).to(td)
                    for a in qkv(B, S, Hq, Hkv, D, seed=S))
@@ -252,7 +259,12 @@ def test_cuda_ssd_scan_matches_plain_version():
     dev = torch.device("cuda")
     for B, S, H, P, N, Q in [(2, 64, 4, 32, 16, 16), (2, 256, 4, 64, 128, 64),
                              (1, 300, 2, 64, 64, 256),   # ragged chunk
-                             (1, 96, 2, 32, 16, 32)]:
+                             (1, 96, 2, 32, 16, 32),
+                             # chip_smoke.py's phase 3 shapes: zamba2-1.2b,
+                             # mamba2-1.3b and one ragged chunk
+                             (4, 2048, 64, 64, 64, 256),
+                             (4, 2048, 64, 64, 128, 256),
+                             (1, 100, 4, 32, 16, 256)]:
         ins = [torch.tensor(a, device=dev)
                for a in ssd_inputs(B, S, H, P, N, seed=S)]
         before = LAUNCHES["ssd_scan"]
@@ -261,3 +273,22 @@ def test_cuda_ssd_scan_matches_plain_version():
         y_p, h_p = ssd_scan_ref(*ins, Q)
         torch.testing.assert_close(y_k, y_p, rtol=SSD_TOL, atol=SSD_TOL)
         torch.testing.assert_close(h_k, h_p, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_one_tile(D, causal):
+    """One 64-row tile, one head: the tensor-core variant's S accumulator
+    fragment must land in P.V's A-operand fragment row for row and
+    column for column, or this output is wrong."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU "
+                    "interpreter (chip_smoke.py runs this check on the card)")
+    from repro_torch.kernels.flash_attention import variant
+    assert variant(torch.bfloat16, D) == "wgmma"
+    q, k, v = (torch.tensor(a, device="cuda").bfloat16()
+               for a in qkv(1, 64, 1, 1, D, seed=D))
+    o_k = flash_attention(q, k, v, causal=causal)
+    o_p = flash_attention_ref(q, k, v, causal=causal)
+    assert_flash_close(o_k.cpu(), o_p.cpu(), "bfloat16")
