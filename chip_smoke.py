@@ -5,12 +5,20 @@
 Phases, in order, each of which fails the script when it fails:
   1. build the four CUDA kernels from src/repro_torch/kernels/csrc/ (one
      nvcc per source, started together) and print ptxas's registers,
-     static shared memory and spills for the two LM kernels' entry points;
+     static shared memory and spills for seg_waterfill's one-launch entry
+     points and the two LM kernels' tensor-core ones;
   2. hold the simulator's kernels against their plain PyTorch versions on
-     the card, at the main path's shapes and at an edge shape, and time
+     the card, at the main path's shapes and at edge shapes, and time
      both (CUDA events around 10 back-to-back launches, median of 3 such
      runs after warm-up):
-     seg_waterfill rates bit for bit and load within rtol 2e-6;
+     seg_waterfill rates bit for bit and load within rtol 2e-6 (against
+     the plain version run on the CPU, which adds in slot order) at
+     F = 12000 / E = 2800 (by both variants), F = 8 / E = 5, the paper's
+     F = 600 / E = 28, a hot link (every active flow on one link) and
+     F = 20000 (the global variant), printing each shape's variant, its
+     CUDA launches per call and its dynamic shared memory; timed at
+     F = 12000 (both variants), F = 600 and on the hot link, and the
+     shared-memory variant at 0, 1 and 8 rounds on those three inputs;
      fw_minplus bit for bit on dyadic weights, rtol 1e-5 otherwise;
   3. the same for the LM kernels, printing for each shape the variant
      that ran and its CUDA launches per call: flash_attention at the
@@ -25,8 +33,9 @@ Phases, in order, each of which fails the script when it fails:
      zamba2-1.2b shape, the mamba2-1.3b shape (N 128) and a one-chunk
      ragged edge — within rtol/atol 1e-4;
   4. the paper experiment: the six policies at 20 hosts / 300 containers,
-     horizon 120, kernels 'auto', each completing 300/300 and agreeing
-     with the port's CPU run (plain versions) leaf by leaf;
+     horizon 120, kernels 'auto', each completing 300/300 (ticks/s
+     printed) and agreeing with the port's CPU run (plain versions) leaf
+     by leaf;
   5. the simulator's main path at real size: 2000 hosts / 6000
      containers, 'fw' delay refresh, policy netaware, horizon 40 — launch
      counts reset just before and read just after, ticks/s and peak device
@@ -47,7 +56,12 @@ Phases, in order, each of which fails the script when it fails:
      magnitude: an end-to-end check of the port, not of the kernels'
      precision, which phase 3 holds; the gap of a prefill whose attention
      rounds p to bf16 is printed beside it); a second kernel run must be
-     bit-identical.
+     bit-identical;
+  8. seg_waterfill's device events per call of each variant at F = 12000
+     under torch.profiler (20 calls each), with each event's device time:
+     the shared-memory variant must be one kernel and no memset, the
+     global one four kernels and two memsets (last, so that no profiler
+     session precedes the timed phases).
 The last lines are the card's name and power limit, one JSON line of
 kernel measurements, and the result line.  Imports torch and repro_torch
 only.  Exits non-zero without a CUDA device.
@@ -91,9 +105,12 @@ from repro_torch.kernels.fw_minplus import (floyd_warshall,  # noqa: E402
                                             floyd_warshall_ref)
 from repro_torch.kernels.seg_waterfill import (seg_waterfill,  # noqa: E402
                                                seg_waterfill_ref)
+from repro_torch.launch.profile import device_summary  # noqa: E402
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
+sw_mod = importlib.import_module(  # the module, not the wrapper function
+    "repro_torch.kernels.seg_waterfill.seg_waterfill")
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     BF16_ATOL, BF16_ULPS, bf16_limit_share, flash_attention,
     flash_attention_ref)
@@ -148,20 +165,33 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops=PEAK_FP32_PER_S):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def entry_label(line):
+    """The readable name of the entry point a ptxas "Compiling entry
+    function" line names, or None for another line."""
+    m = re.search(r"Compiling entry function '\S*?waterfill_smemILi(\d+)E",
+                  line)
+    if m:
+        return f"waterfill_smem<{m.group(1)}>"
+    m = re.search(r"Compiling entry function '\S*?((?:flash_fwd|ssd)_"
+                  r"[a-z0-9]+?)(?:I(.*?)EE)?E", line)
+    if m:
+        args = (m.group(2) or "").replace("13__nv_bfloat16", "bf16,")
+        args = re.sub(r"^f", "float,", args).replace("Li", "")
+        return m.group(1) + (f"<{args.strip(',')}>" if args else "")
+    return None
+
+
 def ptxas_report(name):
-    """One line per tensor-core entry point of kernel ``name``'s build in
-    this process (not the FP32-pipe flash_fwd_fp32), from ptxas's
-    ``-Xptxas -v`` report: registers, static shared memory (the kernels
-    take theirs dynamically, at launch), stack and spills."""
+    """One line per entry point of kernel ``name``'s build in this process
+    that chip_smoke reports (the LM kernels' tensor-core ones, not the
+    FP32-pipe flash_fwd_fp32; seg_waterfill's one-launch ones), from
+    ptxas's ``-Xptxas -v`` report: registers, static shared memory (the
+    kernels take theirs dynamically, at launch), stack and spills."""
     out, label = {}, None
     for line in _build.BUILD_LOGS.get(name, "").splitlines():
-        m = re.search(r"Compiling entry function '\S*?((?:flash_fwd|ssd)_"
-                      r"[a-z0-9]+?)(?:I(.*?)EE)?E", line)
-        if m:
-            args = (m.group(2) or "").replace("13__nv_bfloat16", "bf16,")
-            args = re.sub(r"^f", "float,", args).replace("Li", "")
-            label = m.group(1) + (f"<{args.strip(',')}>" if args else "")
-            if not label.startswith("flash_fwd_fp32"):
+        if "Compiling entry function" in line:
+            label = entry_label(line)
+            if label and not label.startswith("flash_fwd_fp32"):
                 out[label] = []
             continue
         if label not in out:
@@ -180,20 +210,6 @@ def ptxas_report(name):
 # ---------------------------------------------------------------------------
 # Phase 2 inputs
 # ---------------------------------------------------------------------------
-def main_path_flows(net, n_hosts, F, seed):
-    """F flows between random hosts of the real-size fabric, routed on its
-    ECMP paths as network.flow_rates routes them (inactive flows -1)."""
-    r = np.random.default_rng(seed)
-    src = torch.tensor(r.integers(0, n_hosts, F), device=DEV)
-    dst = torch.tensor(r.integers(0, n_hosts, F), device=DEV)
-    active = torch.tensor(r.uniform(size=F) < 0.8, device=DEV)
-    links = torch.where(active[:, None], net.path_links[src, dst], -1)
-    tcp = torch.where(torch.tensor(r.uniform(size=F) < 0.3, device=DEV),
-                      torch.tensor(r.uniform(10, 1e4, F), dtype=torch.float32,
-                                   device=DEV), 1e9).float()
-    return links.int().contiguous(), active, net.link_bw_kbps, tcp
-
-
 def random_flows(F, E, seed):
     r = np.random.default_rng(seed)
     links = r.integers(0, E, (F, 4)).astype(np.int32)
@@ -227,37 +243,164 @@ def waterfill_ops(links, active, E, n_rounds=8):
     return (n_rounds + 1) * (3 * slots + 2 * E + F) + slots + F
 
 
-def check_kernels(real_net, n_hosts):
-    rows = {}
-    # seg_waterfill: rates bit for bit, load within rtol 2e-6
-    F, E = 12000, real_net.link_bw_kbps.shape[0]
-    main = main_path_flows(real_net, n_hosts, F, seed=1)
-    errs = []
-    for name, args in ((f"F={F},E={E}", main),
-                       ("F=8,E=5", random_flows(8, 5, seed=2))):
-        rk, lk = seg_waterfill(*args)
-        rr, lr = seg_waterfill_ref(*args)
+def main_path_flows(net, n_hosts, F, seed):
+    """F flows between random hosts of ``net``, routed on its ECMP paths
+    as network.flow_rates routes them (inactive flows all -1), with a
+    Mathis cap on 30% of them: (links [F,4] i32, active [F] bool,
+    link_bw_kbps [E], tcp_cap [F])."""
+    r = np.random.default_rng(seed)
+    src = torch.tensor(r.integers(0, n_hosts, F), device=DEV)
+    dst = torch.tensor(r.integers(0, n_hosts, F), device=DEV)
+    active = torch.tensor(r.uniform(size=F) < 0.8, device=DEV)
+    links = torch.where(active[:, None], net.path_links[src, dst], -1)
+    tcp = torch.where(torch.tensor(r.uniform(size=F) < 0.3, device=DEV),
+                      torch.tensor(r.uniform(10, 1e4, F), dtype=torch.float32,
+                                   device=DEV), 1e9).float()
+    return links.int().contiguous(), active, net.link_bw_kbps, tcp
+
+
+def hot_link_flows(F, E, seed):
+    """F flows over E links in which every active flow crosses link 0
+    (its first slot), the rest of each path random: link 0's list is
+    about 0.8 F long, far above the warp-walk threshold."""
+    r = np.random.default_rng(seed)
+    links = r.integers(1, E, (F, 4)).astype(np.int32)
+    links[np.arange(4)[None, :] >= r.integers(1, 5, F)[:, None]] = -1
+    links[:, 0] = 0
+    active = r.uniform(size=F) < 0.8
+    links[~active] = -1
+    bw = r.uniform(1e5, 1e6, E).astype(np.float32)
+    tcp = np.where(r.uniform(size=F) < 0.3, r.uniform(10, 1e4, F),
+                   1e9).astype(np.float32)
+    return tuple(torch.tensor(x, device=DEV) for x in (links, active, bw, tcp))
+
+
+# each seg_waterfill variant, launched by name (the wrapper picks by size)
+WATERFILL_VARIANTS = {"smem": sw_mod._launch_smem,
+                      "global": sw_mod._launch_global}
+
+
+def waterfill_events(fn, calls):
+    """{device event name: (ms per call, events per call)} of ``calls``
+    back-to-back calls of ``fn`` under the profiler: the kernels and
+    memsets they launched, PyTorch's fills of uninitialised outputs in
+    deterministic mode included."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
+    _, kernels, _ = device_summary(prof.events())
+    short = (re.sub(r"\(.*", "", n.replace("void ", "")
+                    .replace("(anonymous namespace)::", "")).strip()
+             for n in kernels)
+    return {k: (ms / calls, c / calls)
+            for k, (ms, c) in zip(short, kernels.values())}
+
+
+def check_waterfill(real_net, n_hosts):
+    """seg_waterfill on each shape by the variant variant(F, E) picks (and
+    the global one on the main shape) against its plain version on the
+    same inputs: rates bit for bit, load within rtol 2e-6; the launches of
+    one call; times.  The plain version runs on the CPU for the comparison:
+    the contract is each link's sum in ascending slot order, the order of
+    the CPU's index_add_ (and of the JAX package's segment_sum there); the
+    card's deterministic index_add_ need not keep it
+    (network.segment_sum_slots).  Its time is taken on the card.  Returns
+    the kernels row."""
+    E = real_net.link_bw_kbps.shape[0]
+    main = main_path_flows(real_net, n_hosts, 12000, seed=1)
+    _, paper_net = build_paper_network(SimConfig(), device=DEV)
+    paper = main_path_flows(paper_net, 20, 600, seed=7)
+    hot = hot_link_flows(12000, E, seed=5)
+    errs = []
+    for name, args, which in (
+            (f"F=12000,E={E}", main, None),
+            (f"F=12000,E={E}", main, "global"),
+            ("F=8,E=5", random_flows(8, 5, seed=2), None),
+            ("paper F=600,E=28", paper, None),
+            (f"hot link F=12000,E={E}", hot, None),
+            (f"F=20000,E={E}", main_path_flows(real_net, n_hosts, 20000,
+                                               seed=6), None)):
+        F, n_links = args[0].shape[0], args[2].shape[0]
+        if which is None:
+            which, (rk, lk) = sw_mod.variant(F, n_links), seg_waterfill(*args)
+        else:
+            rk, lk = WATERFILL_VARIANTS[which](*args)
+        rk, lk = rk.cpu(), lk.cpu()
+        rr, lr = seg_waterfill_ref(*(a.cpu() for a in args))
         if not torch.equal(rk, rr):
-            raise AssertionError(f"seg_waterfill {name}: rates differ, max "
-                                 f"{(rk - rr).abs().max().item()}")
+            raise AssertionError(f"seg_waterfill {name} ({which}): rates "
+                                 f"differ, max {(rk - rr).abs().max().item()}")
         torch.testing.assert_close(lk, lr, rtol=2e-6, atol=1e-3)
         errs.append(max((rk - rr).abs().max().item(),
                         (lk - lr).abs().max().item()))
-        log(f"seg_waterfill {name}: rates bit-exact, load within rtol 2e-6")
+        n_launch = sw_mod.CUDA_LAUNCHES_PER_CALL[which]
+        how = (f"variant smem, {n_launch} CUDA launch per call, "
+               f"{sw_mod.smem_bytes(F, n_links)} bytes of dynamic shared "
+               f"memory" if which == "smem" else
+               f"variant global, {n_launch} CUDA launches and 2 memsets per "
+               f"call, workspace in device memory")
+        log(f"seg_waterfill {name} ({how}): rates bit-exact, load "
+            f"{'bit-exact' if torch.equal(lk, lr) else 'within rtol 2e-6'}")
     ms = time_ms(lambda: seg_waterfill(*main))
+    ms_global = time_ms(lambda: sw_mod._launch_global(*main))
+    ms_paper = time_ms(lambda: seg_waterfill(*paper))
+    ms_hot = time_ms(lambda: seg_waterfill(*hot))
     plain = time_ms(lambda: seg_waterfill_ref(*main))
     links, active, bw, tcp = main
-    n_bytes = 4 * (links.numel() + F + E + F) + 4 * (F + E)
+    n_bytes = sum(t.numel() * t.element_size() for t in main) + 4 * (
+        links.shape[0] + E)
     b, by = bound_ms(n_bytes, waterfill_ops(links, active, E))
-    log(f"seg_waterfill F={F} E={E}: kernel {ms:.4f} ms, plain {plain:.4f} ms,"
-        f" bound {b:.6f} ms ({by})")
-    rows["seg_waterfill"] = dict(
+    log(f"seg_waterfill F=12000 E={E}: kernel {ms:.4f} ms (variant smem; "
+        f"the global variant {ms_global:.4f} ms), plain {plain:.4f} ms, "
+        f"bound {b:.6f} ms ({by}); paper F=600 E=28 {ms_paper:.4f} ms; hot "
+        f"link {ms_hot:.4f} ms")
+    # the smem variant by rounds: at 0 the CSR build, tail and load alone
+    for name, args in (("F=12000", main), ("hot link", hot),
+                       ("paper F=600", paper)):
+        by_rounds = ", ".join(
+            f"{n} {time_ms(lambda: seg_waterfill(*args, n_rounds=n)):.4f}"
+            for n in (0, 1, 8))
+        log(f"seg_waterfill {name} ms by n_rounds: {by_rounds}")
+    return dict(
         name="seg_waterfill", route="cuda",
         source="src/repro_torch/kernels/csrc/seg_waterfill.cu",
         replaces="src/repro/kernels/seg_waterfill/seg_waterfill.py:190",
-        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b,
-        bound_by=by, library_ms=None)
+        variant=sw_mod.variant(12000, E), max_abs_err=max(errs), ms=ms,
+        plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
+
+
+def check_waterfill_launches(real_net, n_hosts, calls=20):
+    """Phase 8: the device events of each seg_waterfill variant at
+    F = 12000 under torch.profiler, per call over ``calls`` calls: the
+    shared-memory variant must be one kernel and no memset, the global
+    one four kernels and two memsets; prints each event's device time.
+    Last, so that no profiler session precedes the timed phases."""
+    main = main_path_flows(real_net, n_hosts, 12000, seed=1)
+    for which, want_kernels, want_memsets in (("smem", 1, 0),
+                                              ("global", 4, 2)):
+        events = waterfill_events(
+            lambda: WATERFILL_VARIANTS[which](*main), calls)
+        ours = sum(c for n, (_, c) in events.items()
+                   if "waterfill" in n or n.startswith("csr_"))
+        memsets = sum(c for n, (_, c) in events.items() if "Memset" in n)
+        if (ours, memsets) != (want_kernels, want_memsets):
+            raise AssertionError(f"seg_waterfill {which}: device events per "
+                                 f"call {events}")
+        total = sum(ms for ms, _ in events.values())
+        split = "; ".join(f"{n} {ms:.4f} ms x{c:g}" for n, (ms, c) in
+                          sorted(events.items(), key=lambda r: -r[1][0]))
+        log(f"seg_waterfill F=12000 variant {which}: device events per call "
+            f"over {calls} calls, {total:.4f} ms in all: {split}")
+
+
+def check_kernels(real_net, n_hosts):
+    rows = {"seg_waterfill": check_waterfill(real_net, n_hosts)}
 
     # fw_minplus: bit-exact on dyadic weights, rtol 1e-5 otherwise
     n = 2402
@@ -652,9 +795,11 @@ def paper_experiment():
         cfg = SimConfig(delay_mode=mode)
         reset_launch_counts()
         spec, sim0 = paper_state(cfg, DEV)
+        t0 = time.perf_counter()
         final, metrics = run_sim(sim0, cfg, get_policy(policy, device=DEV),
                                  spec.n_hosts, spec.n_nodes, cfg.horizon)
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
         counts = dict(LAUNCHES)
         rep = summarize(final, metrics)
         want_fw = cfg.horizon // cfg.delay_update_interval if mode == "fw" \
@@ -672,7 +817,8 @@ def paper_experiment():
         assert_state_close(final, ref, rtol=1e-5, atol=1e-4)
         assert_state_close(metrics, ref_m, rtol=1e-4, atol=1e-4)
         log(f"paper {policy:18s} {mode}: completed 300/300, cost "
-            f"{rep['total_cost']:.1f}, launches {counts}, matches the CPU run")
+            f"{rep['total_cost']:.1f}, {cfg.horizon / wall:.3f} ticks/s, "
+            f"launches {counts}, matches the CPU run")
 
 
 def real_size_run():
@@ -741,7 +887,7 @@ def main():
     t0 = time.time()
     _build.build()
     log(f"built kernels {list(_build.SOURCES)} in {time.time() - t0:.2f} s")
-    for name in ("flash_attention", "ssd_scan"):
+    for name in ("seg_waterfill", "flash_attention", "ssd_scan"):
         for line in ptxas_report(name):
             log(f"ptxas {name}: {line}")
 
@@ -760,6 +906,7 @@ def main():
     sim_counts = real_size_run()
     reduced_serve()
     lm_counts = full_width_serve()
+    check_waterfill_launches(real_net, 2000)
     for name, row in rows.items():
         lm = name in ("flash_attention", "ssd_scan")
         row["launches"] = (lm_counts if lm else sim_counts)[name]

@@ -313,7 +313,12 @@ def max_min_fair_rates(member: torch.Tensor, active: torch.Tensor,
 def segment_sum_slots(w: torch.Tensor, seg: torch.Tensor,
                       n_links: int) -> torch.Tensor:
     """Per-link sums of flattened slot values ``w`` onto ``n_links`` + 1
-    segments (slot ``n_links`` is the pad), added in slot order."""
+    segments (slot ``n_links`` is the pad).  On the CPU each sum adds its
+    slots in slot order, as the JAX package's ``segment_sum`` does there.
+    On CUDA (deterministic mode) the order is that of PyTorch's
+    deterministic ``index_add_``: the same from run to run, but not
+    necessarily slot order, so a sum may differ from the CPU's in the last
+    bit."""
     out = torch.zeros((n_links + 1,), dtype=w.dtype, device=w.device)
     return out.index_add_(0, seg, w)[:n_links]
 
