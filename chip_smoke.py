@@ -4,9 +4,9 @@
 
 Phases, in order, each of which fails the script when it fails:
   1. build the four CUDA kernels from src/repro_torch/kernels/csrc/ (one
-     nvcc per source, started together) and print ptxas's registers,
-     static shared memory and spills for seg_waterfill's one-launch entry
-     points and the two LM kernels' tensor-core ones;
+     nvcc per source, started together) and print ptxas's registers, static shared memory and spills for
+     seg_waterfill's one-launch entry points, fw_minplus's two
+     (fw_panels, fw_tiles) and the two LM kernels' tensor-core ones;
   2. hold the simulator's kernels against their plain PyTorch versions on
      the card, at the main path's shapes and at edge shapes, and time
      both (CUDA events around 10 back-to-back launches, median of 3 such
@@ -19,7 +19,16 @@ Phases, in order, each of which fails the script when it fails:
      CUDA launches per call and its dynamic shared memory; timed at
      F = 12000 (both variants), F = 600 and on the hot link, and the
      shared-memory variant at 0, 1 and 8 rounds on those three inputs;
-     fw_minplus bit for bit on dyadic weights, rtol 1e-5 otherwise;
+     the tick's float segment sums on the card bit for bit against the
+     CPU: per-link sums on the hot link and on paper flows,
+     _free_resources at 2000 hosts / 6000 containers with a third on one
+     host;
+     fw_minplus bit for bit on dyadic weights at n = 2402, 37, TILE - 1,
+     TILE, TILE + 1 and 2 TILE + 1, and on a disconnected graph whose
+     unreachable pairs must stay 1e9; rtol 1e-5 on random weights at
+     n = 2402; timed at n = 2402, its bound 2 n_pad^3 FP32 instructions
+     (an FADD and an FMNMX per relaxation) at the issue peak, SMs x 128
+     lanes x the SM clock's maximum from nvidia-smi;
   3. the same for the LM kernels, printing for each shape the variant
      that ran and its CUDA launches per call: flash_attention at the
      zamba2-1.2b prefill shape, a qwen2.5-3b GQA shape (Hq 16, Hkv 2,
@@ -60,8 +69,9 @@ Phases, in order, each of which fails the script when it fails:
   8. seg_waterfill's device events per call of each variant at F = 12000
      under torch.profiler (20 calls each), with each event's device time:
      the shared-memory variant must be one kernel and no memset, the
-     global one four kernels and two memsets (last, so that no profiler
-     session precedes the timed phases).
+     global one four kernels and two memsets; fw_minplus's at n = 2402 (10
+     calls): two kernels per pivot block (76) and no memset (last, so that
+     no profiler session precedes the timed phases).
 The last lines are the card's name and power limit, one JSON line of
 kernel measurements, and the result line.  Imports torch and repro_torch
 only.  Exits non-zero without a CUDA device.
@@ -98,6 +108,7 @@ from repro_torch.core import (SimConfig, build_paper_hosts,  # noqa: E402
                               build_paper_network, get_policy, init_sim,
                               list_policies, paper_workload, run_sim,
                               scaled_hosts, summarize)
+from repro_torch.core import engine, network  # noqa: E402
 from repro_torch.core.convert import assert_state_close  # noqa: E402
 from repro_torch.kernels import (LAUNCHES, _build,  # noqa: E402
                                  reset_launch_counts)
@@ -111,6 +122,7 @@ from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 sw_mod = importlib.import_module(  # the module, not the wrapper function
     "repro_torch.kernels.seg_waterfill.seg_waterfill")
+fw_mod = importlib.import_module("repro_torch.kernels.fw_minplus.fw_minplus")
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     BF16_ATOL, BF16_ULPS, bf16_limit_share, flash_attention,
     flash_attention_ref)
@@ -172,6 +184,9 @@ def entry_label(line):
                   line)
     if m:
         return f"waterfill_smem<{m.group(1)}>"
+    m = re.search(r"Compiling entry function '\S*?(fw_[a-z0-9]+)E", line)
+    if m:
+        return m.group(1)
     m = re.search(r"Compiling entry function '\S*?((?:flash_fwd|ssd)_"
                   r"[a-z0-9]+?)(?:I(.*?)EE)?E", line)
     if m:
@@ -184,7 +199,8 @@ def entry_label(line):
 def ptxas_report(name):
     """One line per entry point of kernel ``name``'s build in this process
     that chip_smoke reports (the LM kernels' tensor-core ones, not the
-    FP32-pipe flash_fwd_fp32; seg_waterfill's one-launch ones), from
+    FP32-pipe flash_fwd_fp32; seg_waterfill's one-launch ones; both of
+    fw_minplus), from
     ptxas's ``-Xptxas -v`` report: registers, static shared memory (the
     kernels take theirs dynamically, at launch), stack and spills."""
     out, label = {}, None
@@ -280,11 +296,13 @@ WATERFILL_VARIANTS = {"smem": sw_mod._launch_smem,
                       "global": sw_mod._launch_global}
 
 
-def waterfill_events(fn, calls):
-    """{device event name: (ms per call, events per call)} of ``calls``
-    back-to-back calls of ``fn`` under the profiler: the kernels and
-    memsets they launched, PyTorch's fills of uninitialised outputs in
-    deterministic mode included."""
+def device_events(fn, calls):
+    """({device event name: (ms per call, events per call)}, busy ms per
+    call) of ``calls`` back-to-back calls of ``fn`` under the profiler:
+    the kernels and memsets they launched, PyTorch's fills of
+    uninitialised outputs in deterministic mode included.  Busy time is
+    the union of the events' spans, which overlap where a launch starts
+    while the one before drains (programmatic dependent launch)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -298,20 +316,26 @@ def waterfill_events(fn, calls):
     short = (re.sub(r"\(.*", "", n.replace("void ", "")
                     .replace("(anonymous namespace)::", "")).strip()
              for n in kernels)
-    return {k: (ms / calls, c / calls)
-            for k, (ms, c) in zip(short, kernels.values())}
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return ({k: (ms / calls, c / calls)
+             for k, (ms, c) in zip(short, kernels.values())},
+            busy / 1e3 / calls)
 
 
 def check_waterfill(real_net, n_hosts):
     """seg_waterfill on each shape by the variant variant(F, E) picks (and
     the global one on the main shape) against its plain version on the
     same inputs: rates bit for bit, load within rtol 2e-6; the launches of
-    one call; times.  The plain version runs on the CPU for the comparison:
-    the contract is each link's sum in ascending slot order, the order of
-    the CPU's index_add_ (and of the JAX package's segment_sum there); the
-    card's deterministic index_add_ need not keep it
-    (network.segment_sum_slots).  Its time is taken on the card.  Returns
-    the kernels row."""
+    one call; times.  The plain version runs on the CPU for the comparison
+    (the contract is each link's sum in ascending slot order, which
+    network.segment_sum keeps on both devices); its time is taken on the
+    card.  Returns the kernels row."""
     E = real_net.link_bw_kbps.shape[0]
     main = main_path_flows(real_net, n_hosts, 12000, seed=1)
     _, paper_net = build_paper_network(SimConfig(), device=DEV)
@@ -384,7 +408,7 @@ def check_waterfill_launches(real_net, n_hosts, calls=20):
     main = main_path_flows(real_net, n_hosts, 12000, seed=1)
     for which, want_kernels, want_memsets in (("smem", 1, 0),
                                               ("global", 4, 2)):
-        events = waterfill_events(
+        events, _ = device_events(
             lambda: WATERFILL_VARIANTS[which](*main), calls)
         ours = sum(c for n, (_, c) in events.items()
                    if "waterfill" in n or n.startswith("csr_"))
@@ -399,15 +423,97 @@ def check_waterfill_launches(real_net, n_hosts, calls=20):
             f"over {calls} calls, {total:.4f} ms in all: {split}")
 
 
-def check_kernels(real_net, n_hosts):
-    rows = {"seg_waterfill": check_waterfill(real_net, n_hosts)}
+def free_inputs(device):
+    """engine._free_resources at real size: 2000 hosts, 6000 containers
+    with paper_workload's requests (uniform draws, not dyadic), a third of
+    them on host 7, about 80% of them freed.  The same as the test module's
+    (tests/test_torch_kernels.py), which is not imported here: it sets
+    torch to one CPU thread, and phases 4 and 6 run on the CPU."""
+    H, C = 2000, 6000
+    req = paper_workload(SimConfig(n_jobs=C // 3, n_tasks=C, n_containers=C),
+                         seed=0, device=device).req
+    r = np.random.default_rng(3)
+    host = r.integers(-1, H, C)
+    host[r.uniform(size=C) < 1 / 3] = 7
+    mask = r.uniform(size=C) < 0.8
+    hosts = scaled_hosts(H, H // 5, device=device)
+    hosts = hosts._replace(used=hosts.cap * 0.75, n_containers=torch.full(
+        (H,), C, dtype=torch.int32, device=device))
+    return (hosts, req, torch.tensor(host, dtype=torch.int32, device=device),
+            torch.tensor(mask, device=device))
 
-    # fw_minplus: bit-exact on dyadic weights, rtol 1e-5 otherwise
-    n = 2402
+
+def check_segment_sums(paper_net, E):
+    """The float segment sums of the tick on the card against the same
+    call on the CPU, bit for bit: the per-link sums on the hot-link input
+    (a run of ~9600 slots on link 0) and on paper flows, and
+    _free_resources at real size."""
+    for name, (links, active, bw, tcp) in (
+            ("hot link F=12000", hot_link_flows(12000, E, seed=5)),
+            ("paper F=600", main_path_flows(paper_net, 20, 600, seed=7))):
+        n_links = bw.shape[0]
+        valid = (links >= 0) & active.bool()[:, None]
+        seg = torch.where(valid, links, n_links).reshape(-1).long()
+        w = (tcp[:, None] * valid.float()).reshape(-1)
+        card = network.segment_sum(w, seg, n_links).cpu()
+        cpu = network.segment_sum(w.cpu(), seg.cpu(), n_links)
+        if not torch.equal(card, cpu):
+            raise AssertionError(f"segment_sum {name}: card differs "
+                                 f"from the CPU, max "
+                                 f"{(card - cpu).abs().max().item()}")
+        log(f"segment_sum per link, {name}: card equals the CPU bit for "
+            f"bit")
+    ins = free_inputs(DEV)
+    card = engine._free_resources(*ins)
+    cpu = engine._free_resources(*free_inputs("cpu"))
+    if not (torch.equal(card.used.cpu(), cpu.used)
+            and torch.equal(card.n_containers.cpu(), cpu.n_containers)):
+        raise AssertionError("_free_resources at real size: card differs "
+                             "from the CPU")
+    log(f"_free_resources 2000 hosts / 6000 containers "
+        f"({int(((ins[2] == 7) & ins[3]).sum())} freed on one host): card "
+        f"equals the CPU bit for bit")
+
+
+def disconnected(n, seed):
+    """A dyadic graph of two components (nodes drawn at random into
+    either), so every pair across them stays unreachable; and the mask
+    of those pairs."""
+    A = adjacency(n, seed, True)
+    comp = torch.tensor(np.random.default_rng(seed).integers(0, 2, n),
+                        device=DEV)
+    apart = comp[:, None] != comp[None, :]
+    return A.masked_fill(apart, 1e9), apart
+
+
+def fp32_issue_peak():
+    """This card's FP32 issue peak in lane-instructions a second, SMs x
+    128 lanes x the SM clock's maximum from nvidia-smi, and that clock in
+    MHz: an FADD and an FMNMX are one lane-instruction each."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    return sms * 128 * mhz * 1e6, mhz
+
+
+def check_fw():
+    """fw_minplus against its plain version on the card: bit for bit on
+    dyadic weights (at the main path's n = 2402, at n = 37 and one tile
+    edge below, at and above one tile and above two), rtol 1e-5 on random
+    weights, unreachable pairs of a disconnected graph at 1e9.  Returns
+    the kernels row."""
+    n, T = 2402, fw_mod.TILE
     errs = []
-    for name, A, exact in (("n=2402 dyadic", adjacency(n, 3, True), True),
-                           ("n=2402 random", adjacency(n, 4, False), False),
-                           ("n=37 dyadic", adjacency(37, 5, True), True)):
+    cases = [("n=2402 dyadic", adjacency(n, 3, True), True),
+             ("n=2402 random", adjacency(n, 4, False), False),
+             ("n=37 dyadic", adjacency(37, 5, True), True)]
+    cases += [(f"n={m} dyadic", adjacency(m, m, True), True)
+              for m in (T - 1, T, T + 1, 2 * T + 1)]
+    A_apart, apart = disconnected(2 * T + 1, 6)
+    cases.append((f"n={2 * T + 1} disconnected", A_apart, True))
+    for name, A, exact in cases:
         Dk, Dr = floyd_warshall(A), floyd_warshall_ref(A)
         torch.cuda.synchronize()
         if exact and not torch.equal(Dk, Dr):
@@ -415,19 +521,70 @@ def check_kernels(real_net, n_hosts):
                                  f"{(Dk - Dr).abs().max().item()}")
         torch.testing.assert_close(Dk, Dr, rtol=1e-5, atol=1e-4)
         errs.append((Dk - Dr).abs().max().item())
-        log(f"fw_minplus {name}: {'bit-exact' if exact else 'within rtol 1e-5'}")
+        extra = ""
+        if A is A_apart:
+            if not bool((Dk[apart] == 1e9).all()):
+                raise AssertionError("fw_minplus: an unreachable pair left "
+                                     "1e9")
+            extra = f", its {int(apart.sum())} unreachable pairs at 1e9"
+        k = fw_mod.cuda_launches(A.shape[0])
+        log(f"fw_minplus {name} ({k} CUDA launch{'es' if k > 1 else ''} per "
+            f"call): "
+            f"{'bit-exact' if exact else 'within rtol 1e-5'}{extra}")
     A = adjacency(n, 4, False)
     ms = time_ms(lambda: floyd_warshall(A))
     plain = time_ms(lambda: floyd_warshall_ref(A))
-    b, by = bound_ms(2 * 4 * n * n, 2.0 * n ** 3)
+    n_pad = -(-n // T) * T
+    peak, mhz = fp32_issue_peak()
+    # n_pad^3 relaxations, each an FADD and an FMNMX
+    relax = float(n_pad) ** 3
+    t_ops = 2 * relax / peak * 1e3
+    t_bytes = 2 * 4 * n * n / PEAK_BYTES_PER_S * 1e3
+    b, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                  else "bytes")
     log(f"fw_minplus n={n}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"bound {b:.6f} ms ({by})")
-    rows["fw_minplus"] = dict(
+        f"bound {b:.6f} ms ({by}; 2 n_pad^3 = {2 * relax:.4g} FP32 "
+        f"instructions at {peak:.4g}/s, SM clock {mhz:g} MHz)")
+    return dict(
         name="fw_minplus", route="cuda",
         source="src/repro_torch/kernels/csrc/fw_minplus.cu",
         replaces="src/repro/kernels/fw_minplus/fw_minplus.py:100",
         max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b,
         bound_by=by, library_ms=None)
+
+
+def fw_split(calls=10, n=2402):
+    """fw_minplus's device events per call at n nodes under torch.profiler,
+    printed with their device times; returns (the kernel's launches, the
+    memsets) per call."""
+    A = adjacency(n, 4, False)
+    events, busy = device_events(lambda: floyd_warshall(A), calls)
+    ours = sum(c for k, (_, c) in events.items() if k.startswith("fw_"))
+    memsets = sum(c for k, (_, c) in events.items() if "Memset" in k)
+    total = sum(ms for ms, _ in events.values())
+    split = "; ".join(f"{k} {ms:.4f} ms x{c:g}" for k, (ms, c) in
+                      sorted(events.items(), key=lambda r: -r[1][0]))
+    log(f"fw_minplus n={n}: device events per call over {calls} calls, "
+        f"{total:.4f} ms of event spans, the device busy {busy:.4f} ms "
+        f"(spans overlap where a launch waits on the one before): {split}")
+    return ours, memsets
+
+
+def check_fw_launches():
+    """Phase 8: fw_minplus at n = 2402 must be two kernels per pivot block
+    and no memset (the wrapper's pad is PyTorch's fill and copies)."""
+    ours, memsets = fw_split()
+    want = fw_mod.cuda_launches(2402)
+    if ours != want or memsets:
+        raise AssertionError(f"fw_minplus: {ours:g} kernels and {memsets:g} "
+                             f"memsets per call, want {want} and none")
+
+
+def check_kernels(real_net, n_hosts):
+    rows = {"seg_waterfill": check_waterfill(real_net, n_hosts)}
+    _, paper_net = build_paper_network(SimConfig(), device=DEV)
+    check_segment_sums(paper_net, real_net.link_bw_kbps.shape[0])
+    rows["fw_minplus"] = check_fw()
     return rows
 
 
@@ -887,7 +1044,7 @@ def main():
     t0 = time.time()
     _build.build()
     log(f"built kernels {list(_build.SOURCES)} in {time.time() - t0:.2f} s")
-    for name in ("seg_waterfill", "flash_attention", "ssd_scan"):
+    for name in _build.SOURCES:
         for line in ptxas_report(name):
             log(f"ptxas {name}: {line}")
 
@@ -907,6 +1064,7 @@ def main():
     reduced_serve()
     lm_counts = full_width_serve()
     check_waterfill_launches(real_net, 2000)
+    check_fw_launches()
     for name, row in rows.items():
         lm = name in ("flash_attention", "ssd_scan")
         row["launches"] = (lm_counts if lm else sim_counts)[name]

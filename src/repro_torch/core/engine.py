@@ -14,10 +14,12 @@ from the device only what sets its loop lengths: the number of valid
 placement candidates, the migration weight, and whether each migration
 step started one (a 0-d tensor is never used as an index, which would
 read it back too: ``types.take``).  On a CUDA device the flow allocation and the 'fw' delay
-refresh go through the hand-written kernels (``repro_torch.kernels``), and
-``run_sim`` turns on ``torch.use_deterministic_algorithms`` so that the
-tick's ``index_add_`` segment sums — float sums of non-integer requests —
-give the same state on every run.
+refresh go through the hand-written kernels (``repro_torch.kernels``).
+Float segment sums (the requests a tick releases) add each segment's rows
+in row order on every device (``network.segment_sum``), so the card's
+sums equal the CPU's; ``run_sim`` turns on
+``torch.use_deterministic_algorithms`` so that no op of the tick takes an
+order that changes from run to run.
 """
 from __future__ import annotations
 
@@ -98,16 +100,17 @@ def _deploy(sim: SimState, c: torch.Tensor, h: torch.Tensor) -> SimState:
 def _free_resources(hosts: HostState, req: torch.Tensor,
                     host_idx: torch.Tensor, mask: torch.Tensor) -> HostState:
     """Release ``req[c]`` on ``host_idx[c]`` where ``mask``: per-host totals
-    by one segment sum (pad slot H collects the unmasked rows, rows added
-    in container order), subtracted in one pass."""
+    by one segment sum (the unmasked rows take the pad id H; each host's
+    rows added in container order on every device,
+    ``network.segment_sum``), subtracted in one pass.  The counts are
+    integers, exact in any order."""
     H = hosts.cap.shape[0]
     m = mask & (host_idx >= 0)
     seg = torch.where(m, host_idx, H).long()
-    dreq = torch.zeros((H + 1, req.shape[1]), dtype=F32, device=req.device)
-    dreq.index_add_(0, seg, req * m.to(F32)[:, None])
+    dreq = network.segment_sum(req * m.to(F32)[:, None], seg, H)
     dcnt = torch.zeros((H + 1,), dtype=I32, device=req.device)
     dcnt.index_add_(0, seg, m.to(I32))
-    return hosts._replace(used=hosts.used - dreq[:H],
+    return hosts._replace(used=hosts.used - dreq,
                           n_containers=hosts.n_containers - dcnt[:H])
 
 

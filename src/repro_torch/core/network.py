@@ -10,9 +10,10 @@ analytic flow-level model:
   progressive filling, Mathis TCP bound MSS / (RTT * sqrt(p))); on a card
   the whole allocation is the ``seg_waterfill`` CUDA kernel.
 
-Every per-link reduction is an ``index_add_`` onto E+1 segments in slot
-order (slot E swallows the pad slots), the order ``jax.ops.segment_sum``
-adds in on the CPU, so the float sums agree with the JAX package.  Sums
+Every per-link reduction is a :func:`segment_sum` onto E segments in
+slot order (id E marks a pad slot, dropped), the order ``jax.ops.segment_sum``
+adds in on the CPU, so the float sums agree with the JAX package, and the
+card's with the CPU's.  Sums
 over a path's four links are written out left to right for the same
 reason.
 """
@@ -310,17 +311,40 @@ def max_min_fair_rates(member: torch.Tensor, active: torch.Tensor,
     return torch.where(active, alloc, 0.0)
 
 
-def segment_sum_slots(w: torch.Tensor, seg: torch.Tensor,
-                      n_links: int) -> torch.Tensor:
-    """Per-link sums of flattened slot values ``w`` onto ``n_links`` + 1
-    segments (slot ``n_links`` is the pad).  On the CPU each sum adds its
-    slots in slot order, as the JAX package's ``segment_sum`` does there.
-    On CUDA (deterministic mode) the order is that of PyTorch's
-    deterministic ``index_add_``: the same from run to run, but not
-    necessarily slot order, so a sum may differ from the CPU's in the last
-    bit."""
-    out = torch.zeros((n_links + 1,), dtype=w.dtype, device=w.device)
-    return out.index_add_(0, seg, w)[:n_links]
+def segment_sum(values: torch.Tensor, seg: torch.Tensor,
+                n_segments: int) -> torch.Tensor:
+    """Sums of the rows of ``values`` [N, ...] onto ``n_segments`` segments
+    by the ids ``seg`` [N] (int64, >= 0; rows with an id >= n_segments,
+    the pads, are dropped): each segment's rows added one after another in
+    ascending row order, from 0, on every device.  That is the order of
+    the CPU's ``index_add_`` and of the JAX package's ``segment_sum`` on
+    the CPU, so the card's sums equal the CPU's bit for bit.  (On CUDA,
+    deterministic ``index_add_`` adds a run of 32 or more equal 1-D ids
+    lane-strided and then by a warp tree: another order.)
+
+    A stable sort lists each segment's rows in row order, the pads last;
+    ``searchsorted`` gives the segment offsets with no host sync
+    (``bincount`` would read its maximum back); ``segment_reduce`` sums
+    each segment between its offsets.
+
+    The order on the card rests on behaviour that PyTorch does not
+    document (``segment_reduce`` is a beta API), read on torch
+    2.11.0+cu128: (1) its CUDA kernel walks each segment in row order, one
+    thread a column, for data of two or more dimensions, while 1-D data
+    goes to a tree reduction, so 1-D values go through as one column;
+    (2) with ``unsafe=True`` it reads no row past the last offset, so the
+    pads, sorted last, are never read.  After a torch upgrade, the
+    ``cuda``-marked ``test_cuda_segment_sum_equals_cpu`` and
+    ``test_cuda_free_resources_matches_cpu_at_real_size``
+    (tests/test_torch_kernels.py) and ``chip_smoke.py`` phase 2 check both
+    on the card."""
+    keys, order = torch.sort(seg, stable=True)
+    offsets = torch.searchsorted(
+        keys, torch.arange(n_segments + 1, device=seg.device))
+    width = int(np.prod(values.shape[1:], dtype=np.int64))
+    out = torch.segment_reduce(values[order].reshape(-1, width), "sum",
+                               offsets=offsets, axis=0, unsafe=True)
+    return out.reshape((n_segments,) + tuple(values.shape[1:]))
 
 
 def max_min_fair_rates_sparse(flow_links: torch.Tensor, active: torch.Tensor,
@@ -336,8 +360,8 @@ def max_min_fair_rates_sparse(flow_links: torch.Tensor, active: torch.Tensor,
     w_valid = valid.to(F32)
 
     def per_link_sum(per_flow):                                   # [F]->[E]
-        return segment_sum_slots((per_flow[:, None] * w_valid).reshape(-1),
-                                 seg, E)
+        return segment_sum((per_flow[:, None] * w_valid).reshape(-1), seg,
+                           E)
 
     def fair_bound(unfrozen, cap_rem):
         cnt = per_link_sum(unfrozen.to(F32))

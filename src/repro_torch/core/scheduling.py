@@ -102,6 +102,7 @@ def same_job_host_counts(sim: SimState, cand: torch.Tensor) -> torch.Tensor:
     hostc = torch.clamp(ct.host, 0, H - 1).long()
     seg = torch.where(hit, k_first * H + hostc, K * H)
     table = torch.zeros((K * H + 1,), dtype=F32, device=cand.device)
+    # integer-valued f32 counts below 2**24: exact in any order of adds
     table.index_add_(0, seg, hit.to(F32))
     kk_first = torch.argmax((jobs_k[None, :] == jobs_k[:, None])
                             .to(torch.uint8), dim=1)
@@ -129,6 +130,7 @@ def init_place_carry(sim: SimState, cand: torch.Tensor,
     totals and the persisted ``rr_pointer``."""
     counts = same_job_host_counts(sim, cand)                    # [K, H]
     leaf = sim.hosts.leaf.long()
+    # integer-valued f32 counts below 2**24: exact in any order of adds
     per_leaf = torch.zeros_like(counts).index_add_(1, leaf, counts)
     return PlaceCarry(rr=sim.sched.rr_pointer, counts=counts,
                       leafpeers=per_leaf[:, leaf])

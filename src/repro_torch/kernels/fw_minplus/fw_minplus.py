@@ -16,8 +16,15 @@ import torch
 from repro_torch.core import network
 from repro_torch.kernels import LAUNCHES, check_cuda_tensor
 
-TILE = 32      # the kernel's tile edge: n is padded up to a multiple
+TILE = 64      # the kernel's tile edge: n is padded up to a multiple
 PAD = 1e9      # off-diagonal padding, as the TPU kernel pads
+
+
+def cuda_launches(n: int) -> int:
+    """CUDA launches of one kernel call at n nodes: two per pivot block of
+    ``TILE`` nodes, one where a single tile holds the graph."""
+    nb = -(-n // TILE)
+    return 2 * nb if nb > 1 else 1
 
 
 def floyd_warshall_ref(A: torch.Tensor) -> torch.Tensor:
@@ -40,15 +47,15 @@ def pad_adjacency(A: torch.Tensor) -> torch.Tensor:
     n_pad = -(-n // TILE) * TILE
     D = torch.full((n_pad, n_pad), PAD, dtype=torch.float32, device=A.device)
     D[:n, :n] = A
-    idx = torch.arange(n, n_pad, device=A.device)
-    D[idx, idx] = 0.0
+    D.diagonal()[n:] = 0.0
     return D
 
 
 def floyd_warshall(A: torch.Tensor) -> torch.Tensor:
     """All-pairs shortest paths over adjacency ``A`` [n, n] f32 (``INF``
     where there is no edge).  CPU tensors run :func:`floyd_warshall_ref`;
-    CUDA tensors launch the kernel on the current stream."""
+    CUDA tensors launch the kernel on the current stream: two CUDA
+    launches per pivot block of ``TILE`` nodes (one where n <= TILE)."""
     if A.device.type == "cpu":
         return floyd_warshall_ref(A)
     n = A.shape[0]

@@ -7,9 +7,8 @@ launch with the whole state in one block's shared memory where it fits,
 else the four-launch kernel with a global-memory workspace.  Contract
 against the plain version run on the CPU: rates bit for bit, load within
 rtol 2e-6 (the kernel adds each link's slots in ascending slot order, as
-the plain version does on the CPU, so in practice load agrees bit for bit
-as well; on the card the plain version's sums take another order, see
-``network.segment_sum_slots``).
+the plain version does on every device, ``network.segment_sum``, so in
+practice load agrees bit for bit as well).
 """
 from __future__ import annotations
 
@@ -57,7 +56,7 @@ def seg_waterfill_ref(links: torch.Tensor, active: torch.Tensor,
     valid = links >= 0
     seg = torch.where(valid, links, E).reshape(-1).long()
     w = (rates[:, None] * valid.to(torch.float32)).reshape(-1)
-    return rates, network.segment_sum_slots(w, seg, E)
+    return rates, network.segment_sum(w, seg, E)
 
 
 def _lib(name: str):

@@ -174,3 +174,36 @@ def test_set_link_params_rejects_sentinels():
     lossy = tnet.set_link_params(net, bw=200.0, loss=0.02)
     assert float(lossy.link_bw.max()) == 200.0
     assert float(lossy.path_loss.max()) > 0.0
+
+
+# --- the ordered segment sum -------------------------------------------------
+def _fold_in_row_order(values, seg, n_segments):
+    """Each segment's rows added one after another in row order, in f32."""
+    out = np.zeros((n_segments,) + values.shape[1:], np.float32)
+    for v, s in zip(values, seg):
+        out[s] = (out[s] + v).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("N,n_seg,cols,seed", [
+    (0, 3, 0, 0), (1, 1, 0, 1), (500, 7, 0, 2), (3000, 2, 0, 3),
+    (600, 29, 3, 4), (6000, 2001, 3, 5)])
+def test_segment_sum_adds_in_row_order(N, n_seg, cols, seed):
+    """network.segment_sum against a row-order f32 fold, against the CPU's
+    index_add_ and the JAX package's segment_sum on the CPU: bit for bit,
+    empty segments 0, the rows of pad id n_seg dropped."""
+    r = np.random.default_rng(seed)
+    shape = (N,) if cols == 0 else (N, cols)
+    values = r.uniform(0.1, 1e4, shape).astype(np.float32)
+    seg = r.integers(0, max(n_seg - 1, 1), N)   # the last segment stays empty
+    seg[r.uniform(size=N) < 0.2] = n_seg        # pads
+    got = tnet.segment_sum(torch.tensor(values), torch.tensor(seg), n_seg)
+    assert got.shape == (n_seg,) + shape[1:]
+    np.testing.assert_array_equal(
+        got.numpy(), _fold_in_row_order(values, seg, n_seg + 1)[:n_seg])
+    ref = torch.zeros((n_seg + 1,) + shape[1:]).index_add_(
+        0, torch.tensor(seg), torch.tensor(values))[:n_seg]
+    assert torch.equal(got, ref)
+    jax_sum = jax.ops.segment_sum(jnp.asarray(values), jnp.asarray(seg),
+                                  num_segments=n_seg)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_sum))
