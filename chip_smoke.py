@@ -50,6 +50,28 @@ Phases, in order, each of which fails the script when it fails:
      counts reset just before and read just after, ticks/s and peak device
      memory printed; then the same run again, whose final state must be
      bit-identical;
+  5a. the same run streamed (ExecPlan(chunk=16): chunks of 16 + 16 + 8,
+     a refresh inside a chunk): final state bit-identical to phase 5's,
+     its OnlineSummary equal to online_from_metrics of phase 5's series
+     (integers exactly, floats within rtol 3e-6), 40 seg_waterfill and 4
+     fw_minplus launches counted; then streamed and stacked timed in
+     turns (streamed, stacked, stacked, streamed, twice), each run's
+     ticks/s and peak device memory above its start printed; then the
+     fold alone: acc_update's host ms a tick and online_fold's a chunk;
+  5b. the policy sweep at the JAX package's tracked sweep point
+     (benchmarks/engine_bench.py QUICK_SWEEP and bench_scenarios: 50
+     hosts, 300 containers, horizon 40, the six policies x baseline,
+     slow_net, lossy_net, tight x one seed = 24 cells), 'fw' refresh,
+     streamed with chunk 16 and slab 5 (the last slab holds 4 cells):
+     the launches counted (40 seg_waterfill and 4 fw_minplus a cell);
+     the first, a middle and the last cell re-run standalone through
+     run_sim, stacked and streamed, finals bit-identical and summary rows
+     equal (integers exactly, floats within rtol 3e-6); wall time (the
+     scenarios' build apart), cells/s and peak device memory printed;
+     each of those three cells timed through the sweep's runner
+     (iter_slabs, slab 1) and standalone (run_sim, chunk 16) in turns;
+     then run_tune, 4 samples over the baseline scenario at 20 hosts,
+     horizon 20, every score finite;
   6. reduced zamba2 served on the card (kernels) against the port's CPU
      run (plain versions) from the same weights and prompts: prefill and
      decode logits within 4 bf16 ulps of their largest magnitude while
@@ -104,12 +126,17 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch.core import (SimConfig, build_paper_hosts,  # noqa: E402
-                              build_paper_network, get_policy, init_sim,
-                              list_policies, paper_workload, run_sim,
+from repro_torch.core import (ExecPlan, SimConfig,  # noqa: E402
+                              build_paper_hosts, build_paper_network,
+                              get_policy, init_sim, list_policies,
+                              online_from_metrics, paper_workload, run_sim,
                               scaled_hosts, summarize)
-from repro_torch.core import engine, network  # noqa: E402
+from repro_torch.core import engine, network, stats  # noqa: E402
 from repro_torch.core.convert import assert_state_close  # noqa: E402
+from repro_torch.core.scenario import (ScenarioSpec,  # noqa: E402
+                                       build_scenarios)
+from repro_torch.core.types import (OnlineSummary,  # noqa: E402
+                                    TickMetrics, tree_map)
 from repro_torch.kernels import (LAUNCHES, _build,  # noqa: E402
                                  reset_launch_counts)
 from repro_torch.kernels.fw_minplus import (floyd_warshall,  # noqa: E402
@@ -128,6 +155,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_ref)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref  # noqa: E402
 from repro_torch.launch.serve import prompt_batch, serve  # noqa: E402
+from repro_torch.launch.sweep import (make_stream_fn,  # noqa: E402
+                                      run_sweep, stack_policies)
+from repro_torch.launch.tune import run_tune  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -995,6 +1025,7 @@ def real_size_run():
         torch.cuda.synchronize()
         return final, metrics, time.time() - t0
 
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     final, metrics, wall = once()
@@ -1025,6 +1056,200 @@ def real_size_run():
             raise AssertionError(f"second run's {what} differs in {bad}")
     log(f"real size second run: bit-identical final state and metrics "
         f"({horizon / wall2:.3f} ticks/s)")
+    return dict(counts=counts, setup=(cfg, spec, sim0, policy), final=final,
+                metrics=metrics, peak_above=peak - base)
+
+
+def streaming_run(real, chunk=16):
+    """Phase 5a: phase 5's run streamed in chunks of ``chunk`` ticks, then
+    timed against the stacked run in turns, then the fold timed alone.
+    Peak memory is stated above what was allocated at each run's start:
+    phase 5's final state is still held."""
+    cfg, spec, sim0, policy = real["setup"]
+    horizon = cfg.horizon
+
+    def once(plan):
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out = run_sim(sim0, cfg, policy, spec.n_hosts, spec.n_nodes, horizon,
+                      plan=plan)
+        torch.cuda.synchronize()
+        return (out, horizon / (time.time() - t0),
+                (torch.cuda.max_memory_allocated() - base) / 2**20)
+
+    streamed = ExecPlan(chunk=chunk)
+    reset_launch_counts()
+    (final, online), _, _ = once(streamed)
+    counts = dict(LAUNCHES)
+    want_fw = len(range(0, horizon, cfg.delay_update_interval))
+    if counts != {"seg_waterfill": horizon, "fw_minplus": want_fw,
+                  "flash_attention": 0, "ssd_scan": 0}:
+        raise AssertionError(f"streamed real-size run launch counts {counts}")
+    la, lb = _leaves(real["final"]), _leaves(final)
+    bad = [k for k in la if not torch.equal(la[k], lb[k])]
+    if bad:
+        raise AssertionError(f"streamed final state differs from phase 5's "
+                             f"in {bad}")
+    check_online(online, online_from_metrics(real["metrics"]),
+                 "streamed real-size run")
+    del final, online
+    turns = {"streamed": [], "stacked": []}
+    for name in ("streamed", "stacked", "stacked", "streamed") * 2:
+        _, rate, mib = once(streamed if name == "streamed" else None)
+        turns[name].append((rate, mib))
+    sizes = ", ".join(str(min(chunk, horizon - t))
+                      for t in range(0, horizon, chunk))
+    ratios = [a[0] / b[0] for a, b in zip(turns["streamed"], turns["stacked"])]
+    log(f"real size streamed, chunk {chunk} ({sizes} ticks), in turns "
+        f"(ticks/s, peak MiB above the run's start): streamed "
+        f"{'; '.join(f'{r:.3f}, {m:.1f}' for r, m in turns['streamed'])}; "
+        f"stacked {'; '.join(f'{r:.3f}, {m:.1f}' for r, m in turns['stacked'])};"
+        f" streamed / stacked by turn pair "
+        f"{', '.join(f'{r:.4f}' for r in ratios)}; launches {counts}; "
+        f"final state bit-identical to phase 5's, summary equal to its "
+        f"series' fold")
+    metrics = real["metrics"]
+    ticks = [TickMetrics(*(x[t] for x in metrics)) for t in range(horizon)]
+    acc = stats.acc_init(DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for m in ticks:
+        acc = stats.acc_update(acc, m)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) * 1e3 / horizon
+    t0 = time.perf_counter()
+    for _ in range(10):
+        stats.online_fold(stats.online_init(), acc)
+    fold_ms = (time.perf_counter() - t0) * 1e3 / 10
+    log(f"real size fold alone: acc_update {update_ms:.4f} ms a tick (host "
+        f"clock, {horizon} ticks of phase 5's series), online_fold "
+        f"{fold_ms:.4f} ms a chunk (one device-to-host copy, 10 calls)")
+    return counts
+
+
+def check_online(got: OnlineSummary, want: OnlineSummary, what: str):
+    """Integer fields exactly, float fields within rtol 3e-6."""
+    for f, a, b in zip(OnlineSummary._fields, got, want):
+        if np.issubdtype(np.asarray(b).dtype, np.integer):
+            np.testing.assert_array_equal(a, b, err_msg=f"{what}: {f}")
+        else:
+            np.testing.assert_allclose(a, b, rtol=3e-6, err_msg=f"{what}: {f}")
+
+
+INT_KEYS = ("n_containers", "n_completed", "total_migrations",
+            "total_arrivals", "total_decisions", "total_migration_starts",
+            "flow_ticks", "peak_running", "peak_deployed", "peak_overloaded",
+            "peak_queue")
+
+
+def check_row(got: dict, want: dict, what: str):
+    """Summary rows: integer keys exactly, float keys within rtol 3e-6."""
+    for k, v in want.items():
+        if k in INT_KEYS or not isinstance(v, float):
+            if got[k] != v:
+                raise AssertionError(f"{what}: {k} {got[k]} != {v}")
+        elif not (np.isnan(v) and np.isnan(got[k])):
+            np.testing.assert_allclose(got[k], v, rtol=3e-6,
+                                       err_msg=f"{what}: {k}")
+
+
+# the JAX package's tracked sweep point (benchmarks/engine_bench.py
+# QUICK_SWEEP, bench_scenarios), restated: the script imports no JAX
+SWEEP_SCENARIOS = (ScenarioSpec("baseline"),
+                   ScenarioSpec("slow_net", bw=200.0),
+                   ScenarioSpec("lossy_net", bw=500.0, loss=0.02),
+                   ScenarioSpec("tight", overload_threshold=0.5,
+                                queue_coef=1.0))
+
+
+def sweep_phase(H=50, C=300, horizon=40, chunk=16, slab=5):
+    """Phase 5b: the streamed policy x scenario sweep, three of its cells
+    re-run standalone and timed against the sweep's runner, then a
+    4-sample weight search."""
+    cfg = SimConfig(n_jobs=max(10, C // 3), n_tasks=C, n_containers=C,
+                    horizon=horizon, delay_mode="fw")
+    n_leaf = max(4, H // 5)
+    grid = dict(n_hosts=H, n_spine=max(2, n_leaf // 4), n_leaf=n_leaf)
+    policies = list_policies()
+    specs = list(SWEEP_SCENARIOS)
+    B = len(policies) * len(specs)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.time()
+    res = run_sweep(policies=policies, scenarios=specs, seeds=(0,), cfg=cfg,
+                    plan=ExecPlan(chunk=chunk, slab=slab), device=DEV, **grid)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_fw = len(range(0, horizon, cfg.delay_update_interval))
+    if counts != {"seg_waterfill": B * horizon, "fw_minplus": B * n_fw,
+                  "flash_attention": 0, "ssd_scan": 0}:
+        raise AssertionError(f"sweep launch counts {counts} for {B} cells")
+    rows = res.summaries()
+    if not any(r["total_decisions"] for r in rows):
+        raise AssertionError("the sweep placed nothing")
+    log(f"sweep {len(policies)} policies x {len(specs)} scenarios x 1 seed "
+        f"= {B} cells (slab {slab}, chunk {chunk}) at {H} hosts / {C} "
+        f"containers, fw, horizon {horizon}: {res.wall_s} s without the "
+        f"scenarios' build ({wall:.3f} s with it), {B / res.wall_s:.3f} "
+        f"cells/s, {B * horizon / res.wall_s:.3f} ticks/s a cell, peak "
+        f"device memory {peak / 2**20:.1f} MiB, launches {counts}")
+    net_spec, sims, rps = build_scenarios(specs, cfg, seeds=(0,), device=DEV,
+                                          **grid)
+    pols = stack_policies(policies, device=DEV)
+    runner = make_stream_fn(cfg, net_spec.n_hosts, net_spec.n_nodes, horizon,
+                            chunk=chunk, slab=1)
+    for b in (0, B // 2, B - 1):
+        p, s = b // len(specs), b % len(specs)
+        sim = tree_map(lambda x: x[s, 0], sims)
+        rp = tree_map(lambda x: x[s], rps)
+        pol = get_policy(policies[p], device=DEV)
+        f, m = run_sim(sim, cfg, pol, net_spec.n_hosts, net_spec.n_nodes,
+                       horizon, params=rp)
+        g, online = run_sim(sim, cfg, pol, net_spec.n_hosts,
+                            net_spec.n_nodes, horizon, params=rp,
+                            plan=ExecPlan(chunk=chunk))
+        cell = _leaves(tree_map(lambda x: x[p, s, 0], res.finals))
+        what = f"sweep cell {b} ({policies[p]}, {specs[s].name})"
+        for got, how in ((f, "stacked"), (g, "streamed")):
+            bad = [k for k, v in _leaves(got).items()
+                   if not np.array_equal(v.cpu().numpy(), cell[k])]
+            if bad:
+                raise AssertionError(f"{what}: finals differ from the "
+                                     f"{how} standalone run in {bad}")
+        check_row(rows[b], summarize(f, m), what)
+        check_row(rows[b], summarize(g, online), what)
+
+        def timed(solo):
+            t1 = time.time()
+            if solo:
+                run_sim(sim, cfg, pol, net_spec.n_hosts, net_spec.n_nodes,
+                        horizon, params=rp, plan=ExecPlan(chunk=chunk))
+            else:
+                next(runner.iter_slabs(sims, pols, rps, [b]))
+            torch.cuda.synchronize()
+            return horizon / (time.time() - t1)
+
+        turns = [(solo, timed(solo)) for solo in (False, True, True, False)]
+        log(f"{what}: equals its standalone run_sim, stacked and streamed "
+            f"(finals bit-identical, rows equal); ticks/s in turns, the "
+            f"sweep's runner {', '.join(f'{r:.3f}' for o, r in turns if not o)}"
+            f" against standalone "
+            f"{', '.join(f'{r:.3f}' for o, r in turns if o)}")
+    t0 = time.time()
+    tres = run_tune(n_samples=4, seeds=(0,),
+                    scenarios=[ScenarioSpec("baseline")],
+                    cfg=SimConfig(horizon=20), n_hosts=20, n_spine=2,
+                    n_leaf=4, device=DEV)
+    torch.cuda.synchronize()
+    if tres.scores.shape != (4,) or not np.isfinite(tres.scores).all():
+        raise AssertionError(f"tune scores {tres.scores}")
+    log(f"tune 4 samples, baseline, 20 hosts, horizon 20: "
+        f"{time.time() - t0:.3f} s, {tres.objective} "
+        f"{', '.join(f'{v:.4f}' for v in tres.scores)}, best sample "
+        f"{tres.best}")
     return counts
 
 
@@ -1060,7 +1285,11 @@ def main():
     rows = check_kernels(real_net, 2000)
     rows.update(check_lm_kernels())
     paper_experiment()
-    sim_counts = real_size_run()
+    real = real_size_run()
+    sim_counts = real["counts"]
+    streaming_run(real)
+    del real
+    sweep_phase()
     reduced_serve()
     lm_counts = full_width_serve()
     check_waterfill_launches(real_net, 2000)

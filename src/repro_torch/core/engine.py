@@ -17,9 +17,11 @@ read it back too: ``types.take``).  On a CUDA device the flow allocation and the
 refresh go through the hand-written kernels (``repro_torch.kernels``).
 Float segment sums (the requests a tick releases) add each segment's rows
 in row order on every device (``network.segment_sum``), so the card's
-sums equal the CPU's; ``run_sim`` turns on
-``torch.use_deterministic_algorithms`` so that no op of the tick takes an
-order that changes from run to run.
+sums equal the CPU's; every entry point turns on
+``torch.use_deterministic_algorithms`` (:func:`use_deterministic`) so
+that no op of the tick takes an order that changes from run to run.
+``run_sim`` stacks the per-tick metrics; with ``ExecPlan(chunk=...)`` it
+streams them into a per-chunk accumulator (:func:`run_sim_chunked`).
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from repro_torch.core.types import (
     STATUS_RUNNING, STATUS_UNBORN, STATUS_WAITING, W_CROSS_LEAF, W_MIG_ENABLE,
     W_UTIL,
     ContainerState, ExecPlan, HostState, NetState, PolicyParams, RunParams,
-    SchedState, SimState, TickMetrics, take,
+    SchedState, SimState, SummaryAcc, TickMetrics, take,
 )
 from repro_torch.kernels import resolve_kernel
 
@@ -564,39 +566,133 @@ def make_tick(cfg: SimConfig, policy: PolicyParams, params: RunParams,
     return tick
 
 
+def _tick_loop(sim: SimState, cfg: SimConfig, policy: PolicyParams,
+               n_hosts: int, n_nodes: int, params: RunParams, t0: int,
+               t1: int, fold, carry):
+    """Ticks ``t0 .. t1 - 1`` from ``sim``, each tick's metrics folded into
+    ``carry`` by ``fold(carry, tt, metrics)``; returns (state, carry).  The
+    runtime link params are applied first when ``t0 == 0`` only:
+    ``apply_link_params`` rebuilds ``comm_cost``, so applying them again
+    at a later tick would wipe the refreshed delay matrix."""
+    if t0 == 0:
+        sim = sim._replace(net=network.apply_link_params(
+            sim.net, params.bw_mbps, params.loss))
+    tick = make_tick(cfg, policy, params, n_hosts, n_nodes)
+    for tt in range(t0, t1):
+        sim, m = tick(sim, tt)
+        carry = fold(carry, tt, m)
+    return sim, carry
+
+
+def _append(ms: list, tt: int, m: TickMetrics) -> list:
+    ms.append(m)
+    return ms
+
+
 def simulate(sim0: SimState, cfg: SimConfig, policy: PolicyParams,
              n_hosts: int, n_nodes: int, horizon: int,
              params: RunParams) -> Tuple[SimState, TickMetrics]:
     """Apply the runtime link params, then run ``horizon`` ticks; returns
     the final state and the per-tick metrics stacked along a trailing time
     axis."""
-    sim = sim0._replace(net=network.apply_link_params(
-        sim0.net, params.bw_mbps, params.loss))
-    tick = make_tick(cfg, policy, params, n_hosts, n_nodes)
-    ms = []
-    for tt in range(horizon):
-        sim, m = tick(sim, tt)
-        ms.append(m)
-    if not ms:
+    if horizon < 1:
         raise ValueError("horizon must be >= 1")
+    sim, ms = _tick_loop(sim0, cfg, policy, n_hosts, n_nodes, params, 0,
+                         horizon, _append, [])
     return sim, TickMetrics(*(torch.stack(f) for f in zip(*ms)))
+
+
+def use_deterministic(device: torch.device) -> None:
+    """On a CUDA device, turn on ``torch.use_deterministic_algorithms`` for
+    the process, so that no op of the tick takes an order that changes
+    from run to run (every entry point that runs ticks calls this)."""
+    if torch.device(device).type == "cuda":
+        torch.use_deterministic_algorithms(True)
+
+
+# ---------------------------------------------------------------------------
+# Streaming (chunked) driver: O(state) memory at any horizon
+# ---------------------------------------------------------------------------
+def simulate_chunk(sim: SimState, acc: SummaryAcc, t0: int, cfg: SimConfig,
+                   policy: PolicyParams, n_hosts: int, n_nodes: int,
+                   chunk: int, params: RunParams
+                   ) -> Tuple[SimState, SummaryAcc]:
+    """One streamed chunk: ``chunk`` ticks from tick ``t0``, each tick's
+    metrics folded into ``acc`` instead of stacked; the runtime link params
+    are applied at ``t0 == 0`` only."""
+    return _tick_loop(sim, cfg, policy, n_hosts, n_nodes, params, t0,
+                      t0 + chunk, lambda a, tt, m: stats.acc_update(a, m),
+                      acc)
+
+
+def stream_chunks(sim0: SimState, cfg: SimConfig, policy: PolicyParams,
+                  n_hosts: int, n_nodes: int, horizon: int, chunk: int,
+                  params: RunParams, on_chunk) -> SimState:
+    """The horizon in chunks of ``chunk`` ticks (the last may be shorter):
+    each tick folded into a ``SummaryAcc``, which goes to ``on_chunk`` at
+    its chunk's end and is then reset.  Returns the final state, the
+    stacked run's bit for bit.  The chunks are ``simulate_chunk``'s ticks
+    back to back in one loop, so no chunk's input state stays referenced
+    while the next chunk runs."""
+    stats.check_chunk(chunk, int(sim0.containers.status.shape[-1]))
+    if horizon < 1:
+        raise ValueError("horizon must be >= 1")
+    device = sim0.t.device
+
+    def fold(acc, tt, m):
+        acc = stats.acc_update(acc, m)
+        if (tt + 1) % chunk and tt + 1 < horizon:
+            return acc
+        on_chunk(acc)
+        return stats.acc_init(device)
+
+    sim, _ = _tick_loop(sim0, cfg, policy, n_hosts, n_nodes, params, 0,
+                        horizon, fold, stats.acc_init(device))
+    return sim
+
+
+def run_sim_chunked(sim0: SimState, cfg: SimConfig, policy: PolicyParams,
+                    n_hosts: int, n_nodes: int, horizon: int, chunk: int,
+                    params: RunParams | None = None):
+    """Streamed ``run_sim``: :func:`stream_chunks`, each chunk's
+    accumulator folded into the host's f64/i64 totals with one
+    device-to-host copy (``stats.online_fold``).  Returns (final state,
+    ``OnlineSummary``); the final state is the stacked run's bit for
+    bit."""
+    device = sim0.t.device
+    use_deterministic(device)
+    params = cfg.run_params(device) if params is None else params
+    online = stats.online_init()
+
+    def fold(acc):
+        nonlocal online
+        online = stats.online_fold(online, acc)
+
+    sim = stream_chunks(sim0, cfg, policy, n_hosts, n_nodes, horizon, chunk,
+                        params, fold)
+    return sim, online
 
 
 def run_sim(sim0: SimState, cfg: SimConfig, policy: PolicyParams,
             n_hosts: int, n_nodes: int, horizon: int,
             params: RunParams | None = None,
-            plan: ExecPlan | None = None) -> Tuple[SimState, TickMetrics]:
-    """Run ``horizon`` ticks on the device ``sim0`` lives on; returns
-    (final state, stacked metrics).
+            plan: ExecPlan | None = None):
+    """Run ``horizon`` ticks on the device ``sim0`` lives on.
 
-    ``plan`` carries the kernel selectors (its other fields belong to
-    later slices and raise).  On a CUDA device this turns on
-    ``torch.use_deterministic_algorithms`` for the process, so the final
-    state is the same on every run."""
+    Without ``plan.chunk`` returns (final state, per-tick metrics stacked
+    along a trailing time axis); with it the run streams through
+    :func:`run_sim_chunked` and returns (final state, ``OnlineSummary``) —
+    the same final state bit for bit; ``report.summarize`` takes either.
+    ``plan`` also carries the kernel selectors.  On a CUDA device this
+    turns on ``torch.use_deterministic_algorithms`` for the process, so
+    the final state is the same on every run.  ``sim0`` is never written
+    to."""
     plan = ExecPlan() if plan is None else plan
     cfg = plan.apply_to_config(cfg)
     device = sim0.t.device
-    if device.type == "cuda":
-        torch.use_deterministic_algorithms(True)
     params = cfg.run_params(device) if params is None else params
+    if plan.chunk is not None:
+        return run_sim_chunked(sim0, cfg, policy, n_hosts, n_nodes, horizon,
+                               plan.chunk, params=params)
+    use_deterministic(device)
     return simulate(sim0, cfg, policy, n_hosts, n_nodes, horizon, params)

@@ -1,20 +1,23 @@
 """Analysis-report module (paper §3.7): end-of-run evaluation metrics.
 
-Counterpart of ``repro.core.report`` for this slice: the run summary
-(average response time, runtime, cost and the metrics-derived keys), the
-per-tick series as plain numpy and its CSV export.  Host-side numpy only.
+Counterpart of ``repro.core.report``: the run summary (average response
+time, runtime, cost and the metrics-derived keys), the per-tick series as
+plain numpy and its CSV export, and the sweep's per-cell rows and tables
+(:func:`sweep_summaries`, :func:`sweep_table`, :func:`tune_table`).
+Host-side numpy only.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.stats import online_from_metrics
-from repro_torch.core.types import (STATUS_COMPLETED, OnlineSummary,
-                                    SimState, TickMetrics)
+from repro_torch.core.types import (STATUS_COMPLETED, WEIGHT_NAMES,
+                                    OnlineSummary, SimState, TickMetrics,
+                                    tree_map)
 
 
 def _np(x) -> np.ndarray:
@@ -112,3 +115,77 @@ def to_csv(metrics: TickMetrics, path: str) -> None:
     keys = list(ts.keys())
     rows = np.stack([ts[k].astype(np.float64) for k in keys], axis=1)
     np.savetxt(path, rows, delimiter=",", header=",".join(keys), comments="")
+
+
+# ---------------------------------------------------------------------------
+# Sweep reporting: [P, S, N] finals/metrics -> rows -> grouped table
+# ---------------------------------------------------------------------------
+def sweep_summaries(finals: SimState, metrics: TickMetrics | OnlineSummary,
+                    policies: Sequence[str], scenarios: Sequence[str],
+                    seeds: Sequence[int]) -> List[Dict[str, Any]]:
+    """One :func:`summarize` row per sweep cell, tagged with its
+    coordinates.  ``finals``/``metrics`` carry leading [P, S, N] axes
+    (tensors or numpy): the stacked [P, S, N, T] series or a streamed
+    sweep's [P, S, N] ``OnlineSummary``.  Each row equals the summary of
+    the cell's standalone run."""
+    finals_np = tree_map(_np, finals)
+    metrics_np = tree_map(_np, metrics)
+    rows = []
+    for p, pol in enumerate(policies):
+        for s, scen in enumerate(scenarios):
+            for n, seed in enumerate(seeds):
+                cell = lambda x: x[p, s, n]
+                rep = summarize(tree_map(cell, finals_np),
+                                tree_map(cell, metrics_np))
+                rep.update(policy=pol, scenario=scen, seed=int(seed))
+                rows.append(rep)
+    return rows
+
+
+def tune_table(weights, scores, objective: str = "avg_runtime",
+               top: int = 10, minimize: bool = True) -> str:
+    """Best-weights table of a weight search (``launch.tune``): the
+    [W, NUM_POLICY_WEIGHTS] samples ranked by ``scores`` (the objective in
+    its true sign; ``minimize`` gives the direction; NaN sorts last), with
+    only the weight columns that vary across samples."""
+    w = np.asarray(weights, np.float64)
+    s = np.asarray(scores, np.float64)
+    order = np.argsort(s if minimize else -s)  # NaNs sort last either way
+    varying = [j for j in range(w.shape[1])
+               if np.unique(w[:, j]).size > 1] or [0]
+    cols = [WEIGHT_NAMES[j] for j in varying]
+    width = max(12, max(len(c) for c in cols) + 2)
+    direction = "lower = better" if minimize else "higher = better"
+    lines = [f"best weights by {objective} ({direction})",
+             "".join(["rank  sample  ", objective.rjust(14)]
+                     + [c.rjust(width) for c in cols])]
+    for rank, i in enumerate(order[:top]):
+        val = f"{s[i]:.4f}" if np.isfinite(s[i]) else "nan"
+        lines.append("".join([f"{rank:<6d}w{i:03d}    ", val.rjust(14)]
+                             + [f"{w[i, j]:.4f}".rjust(width)
+                                for j in varying]))
+    return "\n".join(lines)
+
+
+def sweep_table(rows: Sequence[Dict[str, Any]],
+                value: str = "avg_runtime") -> str:
+    """Grouped table: scenario rows x policy columns, the ``value`` metric
+    averaged over seeds (the sweep-level view of paper Figs 4-10)."""
+    policies = sorted({r["policy"] for r in rows})
+    scenarios = list(dict.fromkeys(r["scenario"] for r in rows))
+    cells = {}
+    for r in rows:
+        cells.setdefault((r["scenario"], r["policy"]), []).append(r[value])
+    width = max(12, max(len(p) for p in policies) + 2)
+    swidth = max(10, max(len(s) for s in scenarios) + 2)
+    lines = [f"{value} (mean over seeds)",
+             "".join([" " * swidth] + [p.rjust(width) for p in policies])]
+    for scen in scenarios:
+        cols = []
+        for pol in policies:
+            vals = np.asarray(cells.get((scen, pol), []), np.float64)
+            vals = vals[np.isfinite(vals)]
+            cols.append((f"{vals.mean():.3f}" if vals.size else "nan")
+                        .rjust(width))
+        lines.append("".join([scen.ljust(swidth)] + cols))
+    return "\n".join(lines)

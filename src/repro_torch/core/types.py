@@ -206,9 +206,49 @@ class TickMetrics(NamedTuple):
     soft_mig_n: torch.Tensor
 
 
+class SummaryAcc(NamedTuple):
+    """Per-chunk summary accumulator of a streamed run (0-d tensors in the
+    tick's f32/i32, on the run's device): every tick folds its metrics in
+    (``stats.acc_update``) instead of being stacked.  Integer sums stay
+    exact because ``stats.check_chunk`` bounds the ticks of a chunk; float
+    sums carry a Kahan compensation term; ``stats.online_fold`` promotes a
+    finished chunk to the host's f64/i64 ``OnlineSummary``."""
+
+    n_ticks: torch.Tensor           # i32 ticks folded into this chunk
+    sum_util_var: torch.Tensor      # f32 Kahan sum of util_variance
+    c_util_var: torch.Tensor        # f32 its compensation term
+    sum_mean_util: torch.Tensor     # f32
+    c_mean_util: torch.Tensor       # f32
+    sum_flow_rate: torch.Tensor     # f32
+    c_flow_rate: torch.Tensor       # f32
+    w_mean_util: torch.Tensor       # f32 Welford mean of mean_util
+    w_m2_util: torch.Tensor         # f32 Welford M2 of mean_util
+    sum_active_flows: torch.Tensor  # i32 flow-ticks
+    sum_arrivals: torch.Tensor      # i32
+    sum_decisions: torch.Tensor     # i32
+    sum_migrations: torch.Tensor    # i32 migration starts
+    peak_running: torch.Tensor      # i32
+    peak_deployed: torch.Tensor     # i32
+    peak_overloaded: torch.Tensor   # i32
+    peak_inactive: torch.Tensor     # i32
+    sum_soft_comm: torch.Tensor     # f32 (soft terms: 0.0 until the
+    c_soft_comm: torch.Tensor       #      autodiff slice)
+    sum_soft_util: torch.Tensor
+    c_soft_util: torch.Tensor
+    sum_soft_n: torch.Tensor
+    c_soft_n: torch.Tensor
+    sum_soft_mig: torch.Tensor
+    c_soft_mig: torch.Tensor
+    sum_soft_mig_n: torch.Tensor
+    c_soft_mig_n: torch.Tensor
+
+
 class OnlineSummary(NamedTuple):
     """Host-side (numpy, f64/i64) summary of a run's metrics series —
-    the shape ``report.summarize`` reads (``stats.online_from_metrics``)."""
+    the shape ``report.summarize`` reads: folded chunk by chunk from
+    ``SummaryAcc`` (``stats.online_fold``) or computed from a stacked
+    series (``stats.online_from_metrics``).  Leaves broadcast over leading
+    batch axes ([P, S, N] for a streamed sweep)."""
 
     n_ticks: np.ndarray
     sum_util_var: np.ndarray
@@ -231,45 +271,70 @@ class OnlineSummary(NamedTuple):
     sum_soft_mig_n: np.ndarray
 
 
+def check_devices(devices) -> None:
+    """The port runs on one device: ``devices`` may be ``None`` or ``1``."""
+    if devices not in (None, 1):
+        raise NotImplementedError(
+            f"devices={devices!r} is not ported yet: the port runs on one "
+            f"device; several come with the multi-process fabric slice of "
+            f"repro_torch")
+
+
 # ExecPlan fields of the JAX package that later slices of the port bring:
 # field -> (its default, the slice that ports it).
 _LATER_PLAN_FIELDS = {
-    "chunk": (None, "streaming"),
-    "slab": (None, "sweep/tune"),
-    "devices": (None, "sweep/tune"),
-    "overlap": (True, "sweep/tune"),
     "telescope": (False, "telescoping"),
     "procs": (1, "multi-process fabric"),
     "devices_per_proc": (1, "multi-process fabric"),
 }
 
 
-@dataclasses.dataclass(frozen=True, init=False)
+@dataclasses.dataclass(frozen=True)
 class ExecPlan:
-    """Execution knobs of a run.  This slice honours the kernel selectors;
-    every other ``repro.core.types.ExecPlan`` field raises
-    ``NotImplementedError`` when set to anything but its default, naming
-    the slice of the port that brings it."""
+    """Execution knobs of a run — how it is executed, never what it
+    simulates (``repro.core.types.ExecPlan``'s fields).
 
+    Honoured: the kernel selectors, ``chunk`` (stream the horizon with
+    online summaries) and ``slab`` (sweep cells gathered to the host
+    together).  ``overlap`` is accepted and changes nothing: the port
+    copies each slab synchronously.  ``devices`` may be ``None`` or ``1``:
+    the port runs on one device.  ``telescope``, ``procs`` and
+    ``devices_per_proc`` raise ``NotImplementedError`` when set to
+    anything but their defaults, naming the slice that brings them."""
+
+    chunk: int | None = None             # ticks per streamed chunk; None =
+    #                                      stacked per-tick metrics
+    slab: int | None = None              # sweep cells per host gather;
+    #                                      None = the whole grid
     delay_kernel: str | None = None      # override SimConfig.delay_kernel
     waterfill_kernel: str | None = None  # override SimConfig.waterfill_kernel
+    devices: int | None = None           # None or 1
+    overlap: bool = True                 # the JAX field; no effect here
+    telescope: bool = False
+    procs: int = 1
+    devices_per_proc: int = 1
 
-    def __init__(self, delay_kernel: str | None = None,
-                 waterfill_kernel: str | None = None, **later):
-        for name, value in later.items():
-            if name not in _LATER_PLAN_FIELDS:
-                raise TypeError(f"ExecPlan has no field {name!r}")
-            default, slice_name = _LATER_PLAN_FIELDS[name]
+    def __post_init__(self):
+        for name in ("chunk", "slab"):
+            v = getattr(self, name)
+            if v is not None and v <= 0:
+                raise ValueError(f"ExecPlan.{name} must be positive, "
+                                 f"got {v}")
+        if self.procs < 1 or self.devices_per_proc < 1:
+            raise ValueError("ExecPlan.procs and devices_per_proc must be "
+                             ">= 1")
+        check_devices(self.devices)
+        for name, (default, slice_name) in _LATER_PLAN_FIELDS.items():
+            value = getattr(self, name)
             if value != default:
                 raise NotImplementedError(
                     f"ExecPlan.{name}={value!r} is not ported yet: it comes "
                     f"with the {slice_name} slice of repro_torch")
-        for name, value in (("delay_kernel", delay_kernel),
-                            ("waterfill_kernel", waterfill_kernel)):
-            if value is not None and value not in KERNEL_FLAGS:
+        for name in ("delay_kernel", "waterfill_kernel"):
+            v = getattr(self, name)
+            if v is not None and v not in KERNEL_FLAGS:
                 raise ValueError(f"ExecPlan.{name} must be one of "
-                                 f"{KERNEL_FLAGS} or None, got {value!r}")
-            object.__setattr__(self, name, value)
+                                 f"{KERNEL_FLAGS} or None, got {v!r}")
 
     def apply_to_config(self, cfg):
         """Fold the kernel selectors into the ``SimConfig``."""
@@ -281,13 +346,28 @@ class ExecPlan:
 
     @classmethod
     def from_args(cls, args) -> "ExecPlan":
-        """Build a plan from an ``argparse`` namespace; later-slice flags
-        present on it raise as the constructor does."""
-        later = {k: getattr(args, k) for k in _LATER_PLAN_FIELDS
-                 if hasattr(args, k)}
-        return cls(delay_kernel=getattr(args, "delay_kernel", None),
-                   waterfill_kernel=getattr(args, "waterfill_kernel", None),
-                   **later)
+        """Build a plan from an ``argparse`` namespace of
+        ``launch.execargs.add_exec_args``; missing attributes take the
+        field defaults, and later-slice flags raise as the constructor
+        does."""
+        defaults = cls()
+
+        def get(name, fallback):
+            v = getattr(args, name, None)
+            return fallback if v is None else v
+
+        return cls(
+            chunk=getattr(args, "chunk", None),
+            slab=getattr(args, "slab", None),
+            delay_kernel=getattr(args, "delay_kernel", None),
+            waterfill_kernel=getattr(args, "waterfill_kernel", None),
+            devices=getattr(args, "devices", None),
+            overlap=not getattr(args, "no_overlap", False),
+            telescope=bool(getattr(args, "telescope", False)),
+            procs=get("procs", defaults.procs),
+            devices_per_proc=get("devices_per_proc",
+                                 defaults.devices_per_proc),
+        )
 
 
 def resolve_device(device=None) -> torch.device:
@@ -300,6 +380,21 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def device_name(device) -> str:
+    """The name a report row records for ``device``."""
+    device = torch.device(device)
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` applied leaf by leaf over same-structure trees of (nested)
+    NamedTuples."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    return fn(tree, *rest)
 
 
 def take(x: torch.Tensor, i: torch.Tensor, dim: int = 0) -> torch.Tensor:

@@ -6,6 +6,7 @@ with ``np.random.default_rng`` in the JAX package's draw order, so the same
 the requested device once.
 
 * ``paper_workload`` — paper Table 6 synthetic distribution.
+* ``bursty_workload`` — flash-crowd arrivals around a few burst centers.
 * ``trace_workload`` — Alibaba GPU-trace-shaped generator (lognormal job
   sizes, exponential inter-arrival), same SoA output.
 """
@@ -94,6 +95,26 @@ def paper_workload(cfg: SimConfig, seed: int = 0,
         rng, cfg.n_jobs, cfg.n_tasks, cfg.n_containers)
     job_arrival = np.sort(rng.uniform(0.0, cfg.arrival_window,
                                       size=cfg.n_jobs)).astype(np.float32)
+    cols = _fill(C, rng, cfg, cont_job, cont_task, job_arrival[cont_job])
+    return _to_state(cols, C, device)
+
+
+def bursty_workload(cfg: SimConfig, seed: int = 0,
+                    capacity: int | None = None, n_bursts: int = 4,
+                    burst_width: float = 1.5,
+                    device=None) -> ContainerState:
+    """Flash-crowd arrivals: jobs cluster around ``n_bursts`` burst centers
+    spread over the arrival window (Gaussian jitter of ``burst_width``
+    s) — the overload-recovery axis of a scenario sweep."""
+    rng = np.random.default_rng(seed)
+    C = capacity or cfg.n_containers
+    cont_job, cont_task = _assign_jobs_tasks(
+        rng, cfg.n_jobs, cfg.n_tasks, cfg.n_containers)
+    centers = np.sort(rng.uniform(0.0, cfg.arrival_window, size=n_bursts))
+    which = rng.integers(0, n_bursts, size=cfg.n_jobs)
+    jitter = rng.normal(0.0, burst_width, size=cfg.n_jobs)
+    job_arrival = np.clip(centers[which] + jitter, 0.0,
+                          None).astype(np.float32)
     cols = _fill(C, rng, cfg, cont_job, cont_task, job_arrival[cont_job])
     return _to_state(cols, C, device)
 

@@ -4,13 +4,18 @@
     PYTHONPATH=src python -m repro_torch.launch.sim --policy all --bw 200
     PYTHONPATH=src python -m repro_torch.launch.sim --hosts 2000 \\
         --containers 6000 --horizon 40 --delay-mode fw --policy netaware
-    PYTHONPATH=src python -m repro_torch.launch.sim --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.sim --device cpu --chunk 16
+    PYTHONPATH=src python -m repro_torch.launch.sim --policy netaware \\
+        --weights cross_leaf=0.5,row_coloc=0.3
 
-The flags are those of ``python -m repro.launch.sim`` that this slice of
-the port supports, plus ``--device`` (default ``cuda``; without a CUDA
-device the run fails unless ``--device cpu`` is given).  Every report row
-records the backend and device it ran on and whether the delay and
-waterfill hot paths went through their CUDA kernels.
+The flags are those of ``python -m repro.launch.sim``, the execution ones
+from ``launch.execargs`` (``--chunk`` streams the run with online
+summaries; ``--telescope`` raises until its slice is ported), plus
+``--device`` (default ``cuda``; without a CUDA device the run fails unless
+``--device cpu`` is given).  Every report row records the backend and
+device it ran on and whether the delay and waterfill hot paths went
+through their CUDA kernels.  The policy x scenario x seed grid lives in
+``repro_torch.launch.sweep``, weight search in ``repro_torch.launch.tune``.
 """
 from __future__ import annotations
 
@@ -25,8 +30,9 @@ from repro_torch.core import (ExecPlan, SimConfig, build_paper_hosts,
                               list_policies, paper_workload, run_sim,
                               scaled_hosts, summarize, to_csv, trace_workload)
 from repro_torch.core.report import json_clean
-from repro_torch.core.types import resolve_device
+from repro_torch.core.types import device_name, resolve_device
 from repro_torch.kernels import resolve_kernel
+from repro_torch.launch.execargs import add_exec_args
 
 
 def build_once(cfg: SimConfig, bw=None, loss=None, seed=0, workload="paper",
@@ -53,23 +59,41 @@ def build_once(cfg: SimConfig, bw=None, loss=None, seed=0, workload="paper",
     return spec, sim0, params
 
 
+def parse_weights(arg: str | None) -> dict[str, float] | None:
+    """``"cross_leaf=0.5,row_coloc=0.3"`` -> by-name override dict
+    (validated against ``types.WEIGHT_NAMES`` by ``get_policy``)."""
+    if not arg:
+        return None
+    out = {}
+    for item in arg.split(","):
+        name, _, val = item.partition("=")
+        if not _:
+            raise ValueError(f"--weights items must be name=value, "
+                             f"got {item!r}")
+        out[name.strip()] = float(val)
+    return out
+
+
 def run_one(policy_name: str, cfg: SimConfig, spec, sim0, params, csv=None,
-            plan: ExecPlan | None = None):
+            weights=None, plan: ExecPlan | None = None):
     plan = ExecPlan() if plan is None else plan
+    if csv and plan.chunk is not None:
+        raise ValueError("--csv needs the stacked per-tick series; "
+                         "drop --chunk to export one")
     cfg = plan.apply_to_config(cfg)
     device = sim0.t.device
     t0 = time.time()
-    final, metrics = run_sim(sim0, cfg, get_policy(policy_name, device=device),
+    final, metrics = run_sim(sim0, cfg,
+                             get_policy(policy_name, weights, device=device),
                              spec.n_hosts, spec.n_nodes, cfg.horizon,
-                             params=params)
+                             params=params, plan=plan)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    rep = summarize(final, metrics)
+    rep = summarize(final, metrics)   # stacked series or OnlineSummary
     rep["policy"] = policy_name
     rep["wall_s"] = round(time.time() - t0, 2)
     rep["backend"] = "torch-" + device.type
-    rep["device"] = (torch.cuda.get_device_name(device)
-                     if device.type == "cuda" else "cpu")
+    rep["device"] = device_name(device)
     rep["delay_mode"] = cfg.delay_mode
     rep["delay_kernel"] = cfg.delay_kernel
     rep["delay_kernel_active"] = (cfg.delay_mode == "fw"
@@ -106,12 +130,10 @@ def main(argv=None) -> None:
     ap.add_argument("--delay-mode", default="path", choices=["path", "fw"],
                     help="delay refresh: ECMP path sum or full APSP "
                          "(the fw_minplus kernel)")
-    ap.add_argument("--delay-kernel", default=None,
-                    choices=["auto", "on", "off"],
-                    help="fw_minplus CUDA kernel (auto: on a CUDA device)")
-    ap.add_argument("--waterfill-kernel", default=None,
-                    choices=["auto", "on", "off"],
-                    help="seg_waterfill CUDA kernel (auto: on a CUDA device)")
+    ap.add_argument("--weights", default=None,
+                    help="by-name weight overrides for the policy, e.g. "
+                         "cross_leaf=0.5,row_coloc=0.3 (types.WEIGHT_NAMES)")
+    add_exec_args(ap, slab=False, devices=False, overlap=False)
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
     args = ap.parse_args(argv)
@@ -123,6 +145,7 @@ def main(argv=None) -> None:
                     batched_placement=not args.sequential,
                     delay_mode=args.delay_mode, **wl)
     plan = ExecPlan.from_args(args)
+    weights = parse_weights(args.weights)
     spec, sim0, params = build_once(cfg, bw=args.bw, loss=args.loss,
                                     seed=args.seed, workload=args.workload,
                                     n_hosts=args.hosts, device=args.device)
@@ -130,7 +153,7 @@ def main(argv=None) -> None:
     reports = []
     for p in policies:
         rep = json_clean(run_one(p, cfg, spec, sim0, params, csv=args.csv,
-                                 plan=plan))
+                                 weights=weights, plan=plan))
         reports.append(rep)
         print(json.dumps(rep, indent=None, sort_keys=True))
     if args.out:

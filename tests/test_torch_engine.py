@@ -227,11 +227,13 @@ def test_convert_round_trips_exactly():
 
 
 def test_entry_points_refuse_what_this_slice_lacks():
-    with pytest.raises(NotImplementedError, match="streaming"):
-        ExecPlan(chunk=8)
+    with pytest.raises(NotImplementedError, match="multi-process fabric"):
+        ExecPlan(devices=2)
     with pytest.raises(NotImplementedError, match="telescoping"):
         ExecPlan(telescope=True)
-    assert ExecPlan(telescope=False, procs=1).delay_kernel is None
+    with pytest.raises(NotImplementedError, match="multi-process fabric"):
+        ExecPlan(procs=2)
+    assert ExecPlan(telescope=False, procs=1, devices=1).delay_kernel is None
     cfg = SimConfig(soft_placement=True, horizon=2)
     spec, sim0 = torch_state(cfg)
     with pytest.raises(NotImplementedError, match="autodiff"):
