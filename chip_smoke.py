@@ -72,6 +72,26 @@ Phases, in order, each of which fails the script when it fails:
      (iter_slabs, slab 1) and standalone (run_sim, chunk 16) in turns;
      then run_tune, 4 samples over the baseline scenario at 20 hosts,
      horizon 20, every score finite;
+  5c. soft placement and its gradient (make_grad_fn, torch autograd; the
+     kernels forward only): the paper testbed (Table 5 hosts, Fig 3
+     fabric, Table 6 workload, 300 containers, horizon 40, 'fw', tau 1)
+     under baseline and slow_net (bw 200) with netaware's weights plus the
+     JAX package's finite-difference offsets (rng 11, uniform 0.05-0.4 on
+     row_comm, row_coloc, row_worst_fit, row_cross_leaf), stacked, on
+     the card against the port's CPU run: values within rtol 1e-5,
+     gradients rtol 1e-4 / atol 1e-6, the hard finals as phase 4 compares
+     them; then phase 5's run with the flag on: the soft forward under
+     no_grad against the flag-off run in four turn pairs (hard finals and
+     metrics bit-identical to phase 5's; wall and peak memory printed), the
+     offset weights' stacked gradient twice (finite, nonzero on row_comm,
+     bit-identical), the same cell's forward and backward timed apart
+     (the gradient bit-identical again; the backward's share printed),
+     and the chunked gradient (chunk 16: value within rtol 1e-5, gradient
+     within rtol 1e-4 / atol 1e-7 off util and cross_leaf); 40
+     seg_waterfill and 4 fw_minplus launches a pass; then run_tune_grad
+     (6 steps x 4 candidates, eval every 3, lr 0.3) on the JAX test's
+     small config under slow_net: the best oracle score finite and no
+     worse than the incumbent's, its wall time printed;
   6. reduced zamba2 served on the card (kernels) against the port's CPU
      run (plain versions) from the same weights and prompts: prefill and
      decode logits within 4 bf16 ulps of their largest magnitude while
@@ -135,8 +155,9 @@ from repro_torch.core import engine, network, stats  # noqa: E402
 from repro_torch.core.convert import assert_state_close  # noqa: E402
 from repro_torch.core.scenario import (ScenarioSpec,  # noqa: E402
                                        build_scenarios)
+from repro_torch.core.scheduling import weight_index  # noqa: E402
 from repro_torch.core.types import (OnlineSummary,  # noqa: E402
-                                    TickMetrics, tree_map)
+                                    PolicyParams, TickMetrics, tree_map)
 from repro_torch.kernels import (LAUNCHES, _build,  # noqa: E402
                                  reset_launch_counts)
 from repro_torch.kernels.fw_minplus import (floyd_warshall,  # noqa: E402
@@ -155,9 +176,10 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_ref)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref  # noqa: E402
 from repro_torch.launch.serve import prompt_batch, serve  # noqa: E402
-from repro_torch.launch.sweep import (make_stream_fn,  # noqa: E402
+from repro_torch.launch.sweep import (make_grad_fn,  # noqa: E402
+                                      make_stream_fn, make_sweep_fn,
                                       run_sweep, stack_policies)
-from repro_torch.launch.tune import run_tune  # noqa: E402
+from repro_torch.launch.tune import run_tune, run_tune_grad  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -1253,6 +1275,212 @@ def sweep_phase(H=50, C=300, horizon=40, chunk=16, slab=5):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 5c: the differentiated sweep and the gradient search
+# ---------------------------------------------------------------------------
+# the JAX package's test config of the gradient search
+# (tests/test_autodiff.py small_cfg), restated: the script imports no JAX
+GRAD_SMALL = dict(n_jobs=10, n_tasks=40, n_containers=40, horizon=30,
+                  arrival_window=10.0, placements_per_tick=16,
+                  migrations_per_tick=2)
+# the two weights the delay refresh carries into net.comm_cost: a chunked
+# gradient truncates them at a chunk boundary inside the admit window
+CACHE_DIMS = [weight_index("util"), weight_index("cross_leaf")]
+
+
+def offset_netaware(device) -> PolicyParams:
+    """netaware's weights plus the JAX package's finite-difference test's
+    offsets (rng 11, uniform 0.05-0.4 on four row weights), which take the
+    point off the built-in vector's ties; [1, W]."""
+    w = get_policy("netaware", device="cpu").weights.numpy().copy()
+    dims = [weight_index(n) for n in ("row_comm", "row_coloc",
+                                      "row_worst_fit", "row_cross_leaf")]
+    w[dims] += np.random.default_rng(11).uniform(
+        0.05, 0.4, len(dims)).astype(np.float32)
+    return PolicyParams(weights=torch.tensor(w[None], device=device))
+
+
+def measured(fn):
+    """(fn's result, wall s, peak device MiB above the start, launches) of
+    one call, the launch counts reset just before it."""
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            (torch.cuda.max_memory_allocated() - base) / 2**20,
+            dict(LAUNCHES))
+
+
+def check_launches(counts, cells, horizon, n_fw, what):
+    want = {"seg_waterfill": cells * horizon, "fw_minplus": cells * n_fw,
+            "flash_attention": 0, "ssd_scan": 0}
+    if counts != want:
+        raise AssertionError(f"{what}: launch counts {counts}, want {want}")
+
+
+def grad_paper(horizon=40):
+    """The paper testbed differentiated on the card against the port on
+    the CPU: baseline and slow_net, the offset netaware weights."""
+    cfg = SimConfig(horizon=horizon, delay_mode="fw", soft_placement=True)
+    specs = [ScenarioSpec("baseline"), ScenarioSpec("slow_net", bw=200.0)]
+    out = {}
+    for key, dev in (("card", DEV), ("cpu", torch.device("cpu"))):
+        net_spec, sims, rps = build_scenarios(specs, cfg, seeds=(0,),
+                                              device=dev)
+        pols = offset_netaware(dev)
+        gfn = make_grad_fn(cfg, net_spec.n_hosts, net_spec.n_nodes, horizon)
+        (v, g), wall, _, counts = measured(lambda: gfn(sims, pols, rps))
+        finals, _ = make_sweep_fn(cfg, net_spec.n_hosts, net_spec.n_nodes,
+                                  horizon)(sims, pols, rps)
+        out[key] = (v.cpu(), g.cpu(), finals, counts, wall)
+    v, g, finals, counts, wall = out["card"]
+    rv, rg, rfinals, _, rwall = out["cpu"]
+    n_fw = len(range(0, horizon, cfg.delay_update_interval))
+    check_launches(counts, len(specs), horizon, n_fw, "paper gradient")
+    torch.testing.assert_close(v, rv, rtol=1e-5, atol=0)
+    torch.testing.assert_close(g, rg, rtol=1e-4, atol=1e-6)
+    assert_state_close(finals, rfinals, rtol=1e-5, atol=1e-4)
+    if not bool(torch.isfinite(g).all()) or g.abs().max().item() == 0:
+        raise AssertionError(f"paper gradient {g}")
+    log(f"grad paper testbed, offset netaware x baseline, slow_net, fw, "
+        f"horizon {horizon}, tau 1: value {v.item():.6f} on the card "
+        f"({rv.item():.6f} on the CPU), gradient max |diff| "
+        f"{(g - rg).abs().max().item():.3g} of max |g| "
+        f"{g.abs().max().item():.4f}; hard finals equal the CPU's; "
+        f"{wall:.3f} s on the card ({rwall:.3f} s on the CPU); launches "
+        f"{counts}")
+
+
+def grad_real(real, chunk=16):
+    """Phase 5's run with the flag on: the soft forward against the flag-off
+    run in turns, then the gradient of the offset netaware weights,
+    stacked twice, taken apart into forward and backward, and chunked."""
+    cfg0, spec, sim0, policy = real["setup"]
+    cfg = dataclasses.replace(cfg0, soft_placement=True)
+    horizon = cfg.horizon
+    n_fw = len(range(0, horizon, cfg.delay_update_interval))
+    H, N = spec.n_hosts, spec.n_nodes
+
+    def flag_off():
+        return run_sim(sim0, cfg0, policy, H, N, horizon)
+
+    def soft_forward():
+        with torch.no_grad():
+            return run_sim(sim0, cfg, policy, H, N, horizon)
+
+    turns = {"off": [], "soft": []}
+    for name in ("off", "soft", "soft", "off") * 2:
+        (final, metrics), wall, mib, counts = measured(
+            flag_off if name == "off" else soft_forward)
+        check_launches(counts, 1, horizon, n_fw, f"real size, {name}")
+        la, lb = _leaves(real["final"]), _leaves(final)
+        bad = [k for k in la if not torch.equal(la[k], lb[k])]
+        bad += [f for f in TickMetrics._fields if not f.startswith("soft_")
+                and not torch.equal(getattr(metrics, f),
+                                    getattr(real["metrics"], f))]
+        if bad:
+            raise AssertionError(f"real size {name}: differs from phase 5's "
+                                 f"flag-off run in {bad}")
+        if name == "soft" and metrics.soft_n.sum().item() == 0:
+            raise AssertionError("real-size soft forward made no decision")
+        turns[name].append((wall, mib))
+        del final, metrics
+    sims = tree_map(lambda x: x[None, None], sim0)
+    rp = cfg.run_params(DEV)
+    rps = tree_map(lambda x: x[None], rp)
+    pols = offset_netaware(DEV)
+    gfn = make_grad_fn(cfg, H, N, horizon)
+    (v, g), wall_s, mib_s, counts = measured(lambda: gfn(sims, pols, rps))
+    check_launches(counts, 1, horizon, n_fw, "real-size stacked gradient")
+    row_comm = weight_index("row_comm")
+    if not bool(torch.isfinite(g).all()) or g[0, row_comm].item() == 0:
+        raise AssertionError(f"real-size stacked gradient {g}")
+    (v2, g2), wall_s2, mib_s2, counts = measured(
+        lambda: gfn(sims, pols, rps))
+    check_launches(counts, 1, horizon, n_fw, "second stacked gradient")
+    if not (torch.equal(v, v2) and torch.equal(g, g2)):
+        raise AssertionError("second real-size stacked gradient differs: "
+                             f"max {(g - g2).abs().max().item()}")
+    # the same stacked cell taken apart: forward (recording the graph) and
+    # backward timed apart
+    w = pols.weights[0].detach().clone().requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = engine.simulate(sim0, cfg, PolicyParams(weights=w), H, N,
+                           horizon, rp)
+    value = stats.soft_objective(m)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    g3, = torch.autograd.grad(value, w)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if not torch.equal(g3, g[0]):
+        raise AssertionError("the stacked gradient taken apart differs")
+    del m, value
+    (vc, gc), wall_c, mib_c, counts = measured(
+        lambda: make_grad_fn(cfg, H, N, horizon, chunk=chunk)(sims, pols,
+                                                              rps))
+    check_launches(counts, 1, horizon, n_fw, "chunked gradient")
+    torch.testing.assert_close(vc, v, rtol=1e-5, atol=0)
+    exact = torch.ones(g.shape[1], dtype=torch.bool, device=g.device)
+    exact[CACHE_DIMS] = False
+    torch.testing.assert_close(gc[:, exact], g[:, exact], rtol=1e-4,
+                               atol=1e-7)
+    fmt = lambda xs: "; ".join(f"{a:.3f} s, {b:.1f} MiB" for a, b in xs)
+    pairs = list(zip(turns["soft"], turns["off"]))
+    log(f"grad real size {H} hosts / {cfg.n_containers} containers, fw, "
+        f"horizon "
+        f"{horizon}, tau 1, in turns (wall, peak MiB above the start): "
+        f"flag off {fmt(turns['off'])}; soft forward under no_grad "
+        f"{fmt(turns['soft'])} (hard finals and metrics bit-identical to "
+        f"phase 5's); soft / off wall by turn pair "
+        f"{', '.join('%.4f' % (a[0] / b[0]) for a, b in pairs)}")
+    log(f"grad real size, offset netaware: stacked forward + backward "
+        f"{wall_s:.3f} s and {wall_s2:.3f} s, peak {mib_s:.1f} and "
+        f"{mib_s2:.1f} MiB, bit-identical; taken apart: forward with the "
+        f"graph {t1 - t0:.3f} s, backward {t2 - t1:.3f} s, backward share "
+        f"{(t2 - t1) / (t2 - t0):.4f}; chunked ({chunk}) {wall_c:.3f} s, "
+        f"peak {mib_c:.1f} MiB, value within rtol 1e-5 and gradient off "
+        f"util/cross_leaf within rtol 1e-4 of the stacked (util "
+        f"{gc[0, CACHE_DIMS[0]].item():.6g} against "
+        f"{g[0, CACHE_DIMS[0]].item():.6g}); value {v.item():.6f}, "
+        f"d/d row_comm {g[0, row_comm].item():.6g}; launches a pass "
+        f"{counts}")
+
+
+def grad_tune():
+    """The gradient search at the JAX package's test parameters, slow_net:
+    the best oracle score finite and no worse than the incumbent's."""
+    cfg = SimConfig(**GRAD_SMALL)
+    scen = [ScenarioSpec("slow_net", bw=200.0)]
+    t0 = time.time()
+    res = run_tune_grad(steps=6, batch=4, eval_every=3, lr=0.3, cfg=cfg,
+                        scenarios=scen, seeds=(0,), objective="avg_runtime",
+                        seed=0, device=DEV)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    incumbent = run_tune(n_samples=1, cfg=cfg, scenarios=scen, seeds=(0,),
+                         objective="avg_runtime", device=DEV).scores[0]
+    if not (np.isfinite(res.best_oracle) and res.best_oracle <= incumbent):
+        raise AssertionError(f"grad tune best {res.best_oracle} against the "
+                             f"incumbent's {incumbent}")
+    log(f"grad tune 6 steps x 4 candidates, slow_net, small config: "
+        f"{wall:.3f} s, best oracle avg_runtime {res.best_oracle:.4f} "
+        f"(incumbent {incumbent:.4f}), {res.oracle_evals} oracle + "
+        f"{res.surrogate_evals} surrogate evals, surrogate means "
+        f"{', '.join('%.5f' % h['surrogate_mean'] for h in res.history)}")
+
+
+def autodiff_phase(real):
+    grad_paper()
+    grad_real(real)
+    grad_tune()
+
+
 def _leaves(t, prefix=""):
     out = {}
     for k, v in t._asdict().items():
@@ -1288,8 +1516,9 @@ def main():
     real = real_size_run()
     sim_counts = real["counts"]
     streaming_run(real)
-    del real
     sweep_phase()
+    autodiff_phase(real)
+    del real
     reduced_serve()
     lm_counts = full_width_serve()
     check_waterfill_launches(real_net, 2000)

@@ -18,7 +18,7 @@ from repro_torch.core.scheduling import (  # noqa: F401
 )
 from repro_torch.core.stats import (  # noqa: F401
     acc_init, acc_update, check_chunk, max_chunk_ticks, online_fold,
-    online_from_metrics, online_init,
+    online_from_metrics, online_init, soft_num_den, soft_objective,
 )
 from repro_torch.core.types import (  # noqa: F401
     NUM_POLICY_WEIGHTS, WEIGHT_NAMES, ExecPlan, OnlineSummary, PolicyParams,

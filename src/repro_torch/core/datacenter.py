@@ -77,8 +77,9 @@ class SimConfig:
     waterfill_kernel: str = "auto"    # seg_waterfill flow allocation
     sparse_flows: bool = True         # segment-based flow engine
     batched_placement: bool = True    # conflict-resolved top-K admit round
-    # the differentiable surrogate comes with the autodiff slice; True
-    # raises NotImplementedError in the engine
+    # sum the softmax surrogate of each schedule round beside the hard
+    # decisions (launch.sweep.make_grad_fn differentiates it); needs
+    # batched_placement
     soft_placement: bool = False
     tau: float = 1.0                  # RunParams.tau default
     stall_rate_floor: float = 50.0    # KB/s under which a flow is 'stalled'

@@ -22,6 +22,10 @@ sums equal the CPU's; every entry point turns on
 that no op of the tick takes an order that changes from run to run.
 ``run_sim`` stacks the per-tick metrics; with ``ExecPlan(chunk=...)`` it
 streams them into a per-chunk accumulator (:func:`run_sim_chunked`).
+With ``SimConfig.soft_placement`` the schedule phase also sums a softmax
+surrogate of its decisions (:func:`phase_schedule_soft`), which torch
+autograd differentiates in the policy weights (``launch.sweep.make_grad_fn``);
+the decisions, and so the run, are the same with the flag on or off.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from repro_torch.core import network, scheduling, stats
 from repro_torch.core.datacenter import SimConfig
 from repro_torch.core.scheduling import BIG, INT_BIG, feasible_hosts
 from repro_torch.core.types import (
+    F_COMM, F_HOST_UTIL,
     STATUS_COMMUNICATING, STATUS_COMPLETED, STATUS_INACTIVE, STATUS_MIGRATING,
     STATUS_RUNNING, STATUS_UNBORN, STATUS_WAITING, W_CROSS_LEAF, W_MIG_ENABLE,
     W_UTIL,
@@ -128,10 +133,9 @@ def phase_arrive(sim: SimState) -> Tuple[SimState, torch.Tensor]:
             arriving.sum().to(I32))
 
 
-def _pick_host(sim, cfg, params, policy, carry, k, cand, used, feas):
-    """Argmin of the policy's [H] preference row over the feasible hosts
+def _pick_host(row: torch.Tensor, feas: torch.Tensor) -> torch.Tensor:
+    """Argmin of a candidate's [H] preference row over the feasible hosts
     (-1 when none is feasible)."""
-    row = scheduling.host_row(sim, cfg, params, policy, carry, k, cand, used)
     return torch.where(feas.any(),
                        torch.argmin(torch.where(feas, row, BIG)), -1)
 
@@ -152,8 +156,8 @@ def _place_sequential(sim: SimState, cfg: SimConfig, params: RunParams,
                               sim.hosts.n_containers,
                               take(sim.containers.req, c),
                               cfg) & valid
-        h = _pick_host(sim, cfg, params, policy, pcarry, 0, cand,
-                       sim.hosts.used, feas)
+        h = _pick_host(scheduling.host_row(sim, cfg, params, policy, pcarry,
+                                           0, cand, sim.hosts.used), feas)
         ok = h >= 0
         hh = torch.clamp(h, 0, H - 1)
         pcarry = scheduling.update_place_carry(sim, policy, pcarry, 0, cand,
@@ -176,7 +180,7 @@ def _scatter_to_containers(C: int, idx: torch.Tensor, ok: torch.Tensor):
 
 
 def _place_batched(sim: SimState, cfg: SimConfig, params: RunParams,
-                   policy: PolicyParams) -> SimState:
+                   policy: PolicyParams):
     """Batched conflict-resolved placement round.
 
     Rank the schedulable containers once by the selection key, take the
@@ -185,6 +189,13 @@ def _place_batched(sim: SimState, cfg: SimConfig, params: RunParams,
     placement carry, so later decisions see earlier ones; then apply the
     container updates in one masked pass.  A candidate with no feasible
     host is skipped instead of blocking the round.
+
+    Returns ``(sim', soft)``.  With ``cfg.soft_placement`` the loop also
+    sums the surrogate ``soft = (soft_comm, soft_util, soft_n)``: the
+    expected comm and host-util columns under
+    ``scheduling.soft_assign`` of the row the argmin takes, and the count
+    of candidates with a feasible host.  The decisions are the same
+    either way; with the flag off ``soft`` is None.
     """
     C = sim.containers.status.shape[0]
     H = sim.hosts.cap.shape[0]
@@ -206,13 +217,25 @@ def _place_batched(sim: SimState, cfg: SimConfig, params: RunParams,
     arange_h = torch.arange(H, device=dev)
     # valid candidates come first in key order, and an invalid one admits
     # nothing and leaves the carry as it was, so the loop stops at the
-    # last valid candidate (one read of the count from the device per tick)
+    # last valid candidate (one read of the count from the device per
+    # tick); the JAX package's scan adds an exact 0.0 to each soft sum for
+    # the candidates past it (an all-infeasible row has an all-zero softmax)
     n_valid = int(valid.sum())
     chosen = [torch.full((), -1, dtype=torch.int64, device=dev)] * K
+    soft_on = cfg.soft_placement
+    if soft_on:
+        s_comm = s_util = s_n = torch.zeros((), dtype=F32, device=dev)
     for k in range(n_valid):
         feas = feasible_hosts(sim.hosts.cap, used, ncont, req_k[k],
                               cfg) & valid[k]
-        h = _pick_host(sim, cfg, params, policy, pcarry, k, cand, used, feas)
+        row, cols = scheduling.host_row_cols(sim, cfg, params, policy,
+                                             pcarry, k, cand, used)
+        h = _pick_host(row, feas)
+        if soft_on:
+            q = scheduling.soft_assign(row, feas, params.tau)
+            s_comm = s_comm + (q * cols[F_COMM]).sum()
+            s_util = s_util + (q * cols[F_HOST_UTIL]).sum()
+            s_n = s_n + feas.any().to(F32)
         ok = h >= 0
         hh = torch.clamp(h, 0, H - 1)
         hot = (arange_h == hh) & ok
@@ -236,16 +259,21 @@ def _place_batched(sim: SimState, cfg: SimConfig, params: RunParams,
     hosts = sim.hosts._replace(used=used, n_containers=ncont)
     sched = scheduling.commit_place_carry(sim.sched, pcarry)._replace(
         decisions=sim.sched.decisions + ok.sum().to(I32))
-    return sim._replace(hosts=hosts, containers=conts, sched=sched)
+    return (sim._replace(hosts=hosts, containers=conts, sched=sched),
+            (s_comm, s_util, s_n) if soft_on else None)
 
 
 def _migrate_batched(sim: SimState, cfg: SimConfig, params: RunParams,
-                     policy: PolicyParams) -> SimState:
+                     policy: PolicyParams):
     """Migration decision round: ``migrations_per_tick`` decision steps
     carrying only what a migration start changes (host counters, container
     status), then one masked pass applying the chosen (container,
     destination) pairs.  A policy whose ``W_MIG_ENABLE`` is zero leaves the
-    state untouched."""
+    state untouched.
+
+    Returns ``(sim', soft)``: with ``cfg.soft_placement`` the steps also
+    sum ``scheduling.migrate_soft``'s ``(soft_mig, soft_mig_n)`` (the
+    decisions unchanged), else ``soft`` is None."""
     C = sim.containers.status.shape[0]
     H = sim.hosts.cap.shape[0]
     used, ncont = sim.hosts.used, sim.hosts.n_containers
@@ -255,13 +283,23 @@ def _migrate_batched(sim: SimState, cfg: SimConfig, params: RunParams,
     dsts = [minus1] * cfg.migrations_per_tick
     # a step that starts no migration leaves the state it reads unchanged,
     # so every later step would decide the same: the round stops there
-    # (and never starts for a policy whose W_MIG_ENABLE weight is zero)
+    # (and never starts for a policy whose W_MIG_ENABLE weight is zero).
+    # Such a step adds an exact 0.0 to both soft sums, so they equal the
+    # JAX package's sums over every step.
+    soft_on = cfg.soft_placement
+    if soft_on:
+        s_mig = s_mig_n = torch.zeros((), dtype=F32, device=status.device)
     enabled = bool(policy.weights[W_MIG_ENABLE] > 0)
     for i in range(cfg.migrations_per_tick if enabled else 0):
         view = sim._replace(
             hosts=sim.hosts._replace(used=used, n_containers=ncont),
             containers=sim.containers._replace(status=status))
-        c, dst = scheduling.migrate(view, cfg, params, policy)
+        if soft_on:
+            c, dst, sv, sc = scheduling.migrate_soft(view, cfg, params,
+                                                     policy)
+            s_mig, s_mig_n = s_mig + sv, s_mig_n + sc
+        else:
+            c, dst = scheduling.migrate(view, cfg, params, policy)
         ok = (c >= 0) & (dst >= 0)
         cc = torch.clamp(c, 0, C - 1)
         hh = torch.clamp(dst, 0, H - 1)
@@ -293,7 +331,32 @@ def _migrate_batched(sim: SimState, cfg: SimConfig, params: RunParams,
     hosts = sim.hosts._replace(used=used, n_containers=ncont)
     sched = sim.sched._replace(
         migrations=sim.sched.migrations + ok.sum().to(I32))
-    return sim._replace(hosts=hosts, containers=conts, sched=sched)
+    return (sim._replace(hosts=hosts, containers=conts, sched=sched),
+            (s_mig, s_mig_n) if soft_on else None)
+
+
+def phase_schedule_soft(sim: SimState, cfg: SimConfig, policy: PolicyParams,
+                        params: RunParams | None = None):
+    """:func:`phase_schedule` plus the tick's surrogate terms: ``(sim',
+    (soft_comm, soft_util, soft_n, soft_mig, soft_mig_n))``, all 0.0
+    unless ``cfg.soft_placement``.  The state transition is the same
+    either way."""
+    if cfg.soft_placement and not cfg.batched_placement:
+        raise ValueError(
+            "SimConfig.soft_placement requires batched_placement: the "
+            "sequential reference path has no admit round to relax")
+    params = cfg.run_params(sim.t.device) if params is None else params
+    zero = torch.zeros((), dtype=I32, device=sim.t.device)
+    sim = sim._replace(sched=sim.sched._replace(decisions=zero,
+                                                migrations=zero))
+    if cfg.batched_placement:
+        sim, place_soft = _place_batched(sim, cfg, params, policy)
+    else:
+        sim, place_soft = _place_sequential(sim, cfg, params, policy), None
+    sim, mig_soft = _migrate_batched(sim, cfg, params, policy)
+    if place_soft is None:
+        return sim, (torch.zeros((), dtype=F32, device=sim.t.device),) * 5
+    return sim, place_soft + mig_soft
 
 
 def phase_schedule(sim: SimState, cfg: SimConfig, policy: PolicyParams,
@@ -301,19 +364,7 @@ def phase_schedule(sim: SimState, cfg: SimConfig, policy: PolicyParams,
     """Paper ``schedule`` process: place up to ``placements_per_tick``
     containers (batched round, or the sequential reference), then start up
     to ``migrations_per_tick`` migrations."""
-    if cfg.soft_placement:
-        raise NotImplementedError(
-            "SimConfig.soft_placement is not ported yet: it comes with the "
-            "autodiff slice of repro_torch")
-    params = cfg.run_params(sim.t.device) if params is None else params
-    zero = torch.zeros((), dtype=I32, device=sim.t.device)
-    sim = sim._replace(sched=sim.sched._replace(decisions=zero,
-                                                migrations=zero))
-    if cfg.batched_placement:
-        sim = _place_batched(sim, cfg, params, policy)
-    else:
-        sim = _place_sequential(sim, cfg, params, policy)
-    return _migrate_batched(sim, cfg, params, policy)
+    return phase_schedule_soft(sim, cfg, policy, params)[0]
 
 
 def pick_comm_peers(ct: ContainerState) -> torch.Tensor:
@@ -524,7 +575,7 @@ def make_tick_ext(cfg: SimConfig, policy: PolicyParams, params: RunParams,
         with record_function("phase_arrive"):
             sim, n_arrived = phase_arrive(sim)
         with record_function("phase_schedule"):
-            sim = phase_schedule(sim, cfg, policy, params)
+            sim, soft = phase_schedule_soft(sim, cfg, policy, params)
         with record_function("phase_flows"):
             sim, comm_rates, mig_rates, flow_active, all_rates = \
                 phase_flows(sim, cfg, use_kernel=use_wf_kernel)
@@ -546,7 +597,7 @@ def make_tick_ext(cfg: SimConfig, policy: PolicyParams, params: RunParams,
         with record_function("stats_collect"):
             m = stats.collect(sim, n_arrived, sim.sched.decisions,
                               sim.sched.migrations, params, flow_active,
-                              all_rates)
+                              all_rates, soft=soft)
         sim = sim._replace(t=sim.t + 1.0)
         return sim, m, TickInfo(comm_rates, mig_rates, flow_active,
                                 all_rates, every)

@@ -7,7 +7,9 @@ weight vector: selection ranks containers by ``priority = sel_features @ w``
 the ``W_MIG_ENABLE`` mask weight with a destination scored by
 ``migration_features(h) @ w``.  The six built-in policies are registered
 as the JAX package's weight vectors, so a policy name means the same thing
-in both packages.
+in both packages.  :func:`soft_assign` relaxes the argmin to a softmax
+over the same score row, the surrogate the soft-placement rounds sum
+(``SimConfig.soft_placement``).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 from repro_torch.core import network
 from repro_torch.core.datacenter import SimConfig
 from repro_torch.core.types import (
-    NUM_MIG_FEATURES, NUM_POLICY_WEIGHTS, NUM_ROW_FEATURES,
+    M_PATH_UTIL, NUM_MIG_FEATURES, NUM_POLICY_WEIGHTS, NUM_ROW_FEATURES,
     STATUS_COMMUNICATING, STATUS_INACTIVE, STATUS_MIGRATING, STATUS_RUNNING,
     STATUS_WAITING, W_MIG0, W_MIG_ENABLE, W_ROW0, W_RR_TRACK, W_SEL_DURATION,
     W_SEL_SUBMIT, WEIGHT_NAMES, PolicyParams, RunParams, SimState,
@@ -76,6 +78,21 @@ def first_true(order_key: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     ``mask`` is empty.  A 0-d int64 tensor (no host sync)."""
     key = torch.where(mask, order_key, BIG)
     return torch.where(mask.any(), torch.argmin(key), -1)
+
+
+def soft_assign(row: torch.Tensor, feas: torch.Tensor,
+                tau: torch.Tensor) -> torch.Tensor:
+    """Softmax relaxation of ``argmin over the feasible hosts``:
+    ``q[h] = softmax(-row/tau)[h]`` over ``feas``, an exact 0.0 on
+    infeasible hosts and all zeros for an all-infeasible row.  The row is
+    shifted by its feasible minimum before the exp, so every exponent is
+    finite and non-positive and no ``0 * inf`` reaches the primal or the
+    gradient.  ``torch.amin`` splits the shift's gradient evenly among
+    tied minima, as ``jnp.min`` does (identical idle hosts tie exactly)."""
+    lo = torch.amin(torch.where(feas, row, BIG))
+    shifted = torch.where(feas, row - lo, 0.0)
+    e = torch.exp(-shifted / tau) * feas.to(row.dtype)
+    return e / torch.clamp(e.sum(), min=1e-30)
 
 
 # ---------------------------------------------------------------------------
@@ -270,10 +287,11 @@ def migration_features(sim: SimState, src_c: torch.Tensor) -> torch.Tensor:
                         _worst_fit_row(sim, sim.hosts.used)], dim=1)
 
 
-def migrate(sim: SimState, cfg: SimConfig, params: RunParams,
-            pol: PolicyParams):
-    """(container | -1, dst | -1) for this decision step; ``W_MIG_ENABLE``
-    = 0 gives the no-op (-1, -1)."""
+def _migrate_core(sim: SimState, cfg: SimConfig, params: RunParams,
+                  pol: PolicyParams):
+    """The shared decision: (container | -1, dst | -1) plus the
+    destination feature bank, score row and mask the soft surrogate
+    reads."""
     w = pol.weights
     src, cont, src_c, dst_mask = _overload_source(sim, cfg, params)
     feats = migration_features(sim, src_c)
@@ -283,7 +301,28 @@ def migrate(sim: SimState, cfg: SimConfig, params: RunParams,
         score = score + feats[:, i] * mw[i]
     dst = first_true(score, dst_mask)
     ok = (src >= 0) & (cont >= 0) & (dst >= 0) & (w[W_MIG_ENABLE] > 0)
-    return torch.where(ok, cont, -1), torch.where(ok, dst, -1)
+    return (torch.where(ok, cont, -1), torch.where(ok, dst, -1), feats,
+            score, dst_mask)
+
+
+def migrate(sim: SimState, cfg: SimConfig, params: RunParams,
+            pol: PolicyParams):
+    """(container | -1, dst | -1) for this decision step; ``W_MIG_ENABLE``
+    = 0 gives the no-op (-1, -1)."""
+    return _migrate_core(sim, cfg, params, pol)[:2]
+
+
+def migrate_soft(sim: SimState, cfg: SimConfig, params: RunParams,
+                 pol: PolicyParams):
+    """:func:`migrate` plus the surrogate terms: ``(cont, dst, soft_val,
+    soft_cnt)``, the hard pair :func:`migrate`'s, ``soft_val`` the
+    expected bottleneck-path utilization of the destination under
+    ``soft_assign(score, dst_mask, tau)`` (differentiable in the migration
+    weights).  Both soft terms are exact 0.0 when no migration fires."""
+    cont, dst, feats, score, dst_mask = _migrate_core(sim, cfg, params, pol)
+    q = soft_assign(score, dst_mask, params.tau)
+    fired = (dst >= 0).to(F32)
+    return cont, dst, fired * (q * feats[:, M_PATH_UTIL]).sum(), fired
 
 
 # ---------------------------------------------------------------------------

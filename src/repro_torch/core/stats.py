@@ -7,8 +7,10 @@ accumulator (``SummaryAcc`` on the device, reset every chunk:
 (:func:`online_init`, :func:`online_fold`, :func:`online_merge`), and
 :func:`online_from_metrics`, the same summary from a stacked series.
 The tick stays f32/i32; the only 64-bit arithmetic is the numpy fold.
-The telescoping fold (``acc_update_weighted``) and the soft-placement
-objectives come with their slices.
+:func:`soft_num_den` and :func:`soft_objective` reduce the soft-placement
+surrogate sums (``SimConfig.soft_placement``) of any of the three shapes
+to the objective autograd differentiates.  The telescoping fold
+(``acc_update_weighted``) comes with its slice.
 """
 from __future__ import annotations
 
@@ -28,9 +30,12 @@ I32 = torch.int32
 def collect(sim: SimState, new_arrivals: torch.Tensor,
             decisions: torch.Tensor, migrations: torch.Tensor,
             params: RunParams, flow_active: torch.Tensor,
-            flow_rates: torch.Tensor) -> TickMetrics:
+            flow_rates: torch.Tensor, soft=None) -> TickMetrics:
     """Per-tick metrics; ``params`` carries the overload threshold the
-    ``n_overloaded`` count is judged against."""
+    ``n_overloaded`` count is judged against.  ``soft`` is the scheduling
+    round's surrogate 5-tuple ``(soft_comm, soft_util, soft_n, soft_mig,
+    soft_mig_n)`` from ``engine.phase_schedule_soft``; omitted, the five
+    are 0.0."""
     st = sim.containers.status
     util = sim.hosts.used / torch.clamp(sim.hosts.cap, min=1e-6)    # [H, 3]
     worst = util.amax(dim=1)
@@ -46,7 +51,9 @@ def collect(sim: SimState, new_arrivals: torch.Tensor,
                          dtype=st.dtype, device=st.device)
     counts = (st[:, None] == codes[None, :]).sum(dim=0).to(I32)
     n_inactive, n_running, n_comm, n_mig, n_wait, n_done = counts.unbind()
-    zero = torch.zeros((), dtype=F32, device=st.device)
+    if soft is None:
+        soft = (torch.zeros((), dtype=F32, device=st.device),) * 5
+    soft_comm, soft_util, soft_n, soft_mig, soft_mig_n = soft
     return TickMetrics(
         t=sim.t,
         n_overloaded=(worst > params.overload_threshold).sum().to(I32),
@@ -64,8 +71,8 @@ def collect(sim: SimState, new_arrivals: torch.Tensor,
         mean_util=mean_util.mean(),
         active_flows=n_active_flows,
         mean_flow_rate=mean_rate,
-        soft_comm=zero, soft_util=zero, soft_n=zero, soft_mig=zero,
-        soft_mig_n=zero,
+        soft_comm=soft_comm, soft_util=soft_util, soft_n=soft_n,
+        soft_mig=soft_mig, soft_mig_n=soft_mig_n,
     )
 
 
@@ -160,10 +167,11 @@ def acc_update(acc: SummaryAcc, m: TickMetrics) -> SummaryAcc:
 def acc_to_numpy(acc: SummaryAcc) -> SummaryAcc:
     """The accumulator's leaves (tensors of any one shape) as numpy arrays,
     with ONE device-to-host copy: the i32 fields ride the f32 stack as
-    their bit patterns.  Numpy leaves pass through."""
+    their bit patterns.  Numpy leaves pass through; the values of soft
+    sums that carry a graph are taken, the graph left alone."""
     if not isinstance(acc.n_ticks, torch.Tensor):
         return SummaryAcc(*(np.asarray(x) for x in acc))
-    f = torch.stack([getattr(acc, k) for k in ACC_FLOAT_FIELDS])
+    f = torch.stack([getattr(acc, k) for k in ACC_FLOAT_FIELDS]).detach()
     i = torch.stack([getattr(acc, k) for k in ACC_INT_FIELDS])
     host = torch.cat([f, i.view(F32)]).cpu().numpy()
     nf = len(ACC_FLOAT_FIELDS)
@@ -304,3 +312,59 @@ def online_from_metrics(metrics: TickMetrics) -> OnlineSummary:
         sum_soft_mig=f(metrics.soft_mig).sum(axis=-1),
         sum_soft_mig_n=f(metrics.soft_mig_n).sum(axis=-1),
     )
+
+
+# ---------------------------------------------------------------------------
+# Differentiable surrogate objectives (SimConfig.soft_placement)
+# ---------------------------------------------------------------------------
+# name -> which surrogate sums form the mean; 'soft_blend' mixes the comm-
+# and util-expectation columns (a single-column objective is invariant to
+# scaling its one weight).  Lower = better.
+SOFT_OBJECTIVES: tuple = ("soft_blend", "soft_comm", "soft_util",
+                          "soft_mig_util")
+
+
+def soft_num_den(m, objective: str = "soft_blend"):
+    """(numerator, denominator) of a named surrogate objective.  ``m`` may
+    be stacked ``TickMetrics`` (trailing time axis, summed here), a
+    ``SummaryAcc`` (the Kahan pair collapsed as ``sum + c``, as
+    ``online_fold`` recovers it) or a host-side ``OnlineSummary``; on
+    tensors it stays differentiable."""
+    if objective not in SOFT_OBJECTIVES:
+        raise KeyError(f"unknown soft objective {objective!r}; known: "
+                       f"{list(SOFT_OBJECTIVES)}")
+    if isinstance(m, SummaryAcc):
+        comm = m.sum_soft_comm + m.c_soft_comm
+        util = m.sum_soft_util + m.c_soft_util
+        n = m.sum_soft_n + m.c_soft_n
+        mig = m.sum_soft_mig + m.c_soft_mig
+        mig_n = m.sum_soft_mig_n + m.c_soft_mig_n
+    elif isinstance(m, OnlineSummary):
+        comm, util, n = m.sum_soft_comm, m.sum_soft_util, m.sum_soft_n
+        mig, mig_n = m.sum_soft_mig, m.sum_soft_mig_n
+    elif isinstance(m, TickMetrics):
+        comm = m.soft_comm.sum(-1)
+        util = m.soft_util.sum(-1)
+        n = m.soft_n.sum(-1)
+        mig = m.soft_mig.sum(-1)
+        mig_n = m.soft_mig_n.sum(-1)
+    else:
+        raise TypeError(f"expected TickMetrics, SummaryAcc or "
+                        f"OnlineSummary, got {type(m).__name__}")
+    if objective == "soft_comm":
+        return comm, n
+    if objective == "soft_util":
+        return util, n
+    if objective == "soft_mig_util":
+        return mig, mig_n
+    return comm + util, n
+
+
+def soft_objective(m, objective: str = "soft_blend"):
+    """Mean surrogate cost (lower = better): numerator / max(count, 1).
+    The count comes from feasibility decisions, piecewise constant in the
+    weights, so the gradient is the numerator's scaled by it."""
+    num, den = soft_num_den(m, objective)
+    if isinstance(den, torch.Tensor):
+        return num / torch.clamp(den, min=1.0)
+    return num / np.maximum(den, 1.0)

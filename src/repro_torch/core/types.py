@@ -153,8 +153,7 @@ class RunParams(NamedTuple):
     queue_coef: torch.Tensor          # M/M/1 queueing-delay coefficient
     overload_threshold: torch.Tensor  # migration source / stats threshold
     idle_threshold: torch.Tensor      # migration destination threshold
-    tau: torch.Tensor                 # soft-placement temperature (unread
-    #                                   until soft placement is ported)
+    tau: torch.Tensor                 # soft-placement softmax temperature
 
 
 class SchedState(NamedTuple):
@@ -180,8 +179,8 @@ class SimState(NamedTuple):
 class TickMetrics(NamedTuple):
     """Per-tick observables (paper's data-collection module).  ``run_sim``
     stacks them along a trailing time axis.  The ``soft_*`` surrogate terms
-    stay exact 0.0 until soft placement is ported; they are kept so that
-    ``report.summarize`` gives the JAX package's keys."""
+    are the schedule round's softmax sums with ``SimConfig.soft_placement``
+    and exact 0.0 without it."""
 
     t: torch.Tensor
     n_overloaded: torch.Tensor
@@ -231,8 +230,8 @@ class SummaryAcc(NamedTuple):
     peak_deployed: torch.Tensor     # i32
     peak_overloaded: torch.Tensor   # i32
     peak_inactive: torch.Tensor     # i32
-    sum_soft_comm: torch.Tensor     # f32 (soft terms: 0.0 until the
-    c_soft_comm: torch.Tensor       #      autodiff slice)
+    sum_soft_comm: torch.Tensor     # f32 (soft terms: 0.0 without
+    c_soft_comm: torch.Tensor       #      SimConfig.soft_placement)
     sum_soft_util: torch.Tensor
     c_soft_util: torch.Tensor
     sum_soft_n: torch.Tensor

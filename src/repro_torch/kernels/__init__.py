@@ -57,3 +57,18 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype, shape) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_no_grad(kernel: str, **inputs: torch.Tensor) -> None:
+    """Raise if grad mode is on and an input of ``kernel`` requires grad.
+    The simulator's kernels have no backward and write their outputs
+    where autograd cannot see them, so a gradient through one would be
+    dropped without a word."""
+    if not torch.is_grad_enabled():
+        return
+    for name, t in inputs.items():
+        if t.requires_grad:
+            raise RuntimeError(
+                f"{kernel}: input {name!r} requires grad, but the kernel "
+                f"has no backward; its gradient would be dropped (detach "
+                f"it, or run under torch.no_grad)")

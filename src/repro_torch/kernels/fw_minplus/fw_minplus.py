@@ -14,7 +14,7 @@ import ctypes
 import torch
 
 from repro_torch.core import network
-from repro_torch.kernels import LAUNCHES, check_cuda_tensor
+from repro_torch.kernels import LAUNCHES, check_cuda_tensor, check_no_grad
 
 TILE = 64      # the kernel's tile edge: n is padded up to a multiple
 PAD = 1e9      # off-diagonal padding, as the TPU kernel pads
@@ -55,11 +55,13 @@ def floyd_warshall(A: torch.Tensor) -> torch.Tensor:
     """All-pairs shortest paths over adjacency ``A`` [n, n] f32 (``INF``
     where there is no edge).  CPU tensors run :func:`floyd_warshall_ref`;
     CUDA tensors launch the kernel on the current stream: two CUDA
-    launches per pivot block of ``TILE`` nodes (one where n <= TILE)."""
+    launches per pivot block of ``TILE`` nodes (one where n <= TILE); they
+    raise if grad mode is on and ``A`` requires grad (no backward)."""
     if A.device.type == "cpu":
         return floyd_warshall_ref(A)
     n = A.shape[0]
     check_cuda_tensor("A", A, torch.float32, (n, n))
+    check_no_grad("fw_minplus", A=A)
     D = pad_adjacency(A)
     err = _lib()(D.data_ptr(), D.shape[0],
                  torch.cuda.current_stream(A.device).cuda_stream)

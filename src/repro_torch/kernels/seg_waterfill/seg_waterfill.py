@@ -17,7 +17,7 @@ import ctypes
 import torch
 
 from repro_torch.core import network
-from repro_torch.kernels import LAUNCHES, check_cuda_tensor
+from repro_torch.kernels import LAUNCHES, check_cuda_tensor, check_no_grad
 
 SMEM_LIMIT = 232448      # dynamic shared memory one block may take (sm_90)
 SMEM_MAX_FLOWS = 16383   # 4F slots: every count, offset and flow id fits u16
@@ -80,7 +80,8 @@ def seg_waterfill(links: torch.Tensor, active: torch.Tensor,
     ``links`` [F, 4] integer ECMP link ids (-1 pad), ``active`` [F] bool or
     integer, ``link_bw_kbps`` [E] f32, ``tcp_cap`` [F] f32 Mathis ceiling.
     CPU tensors run :func:`seg_waterfill_ref`; CUDA tensors launch the
-    kernel variant :func:`variant` names on the current stream.
+    kernel variant :func:`variant` names on the current stream, and raise
+    if grad mode is on and an input requires grad (no backward).
     """
     if links.device.type == "cpu":
         return seg_waterfill_ref(links, active, link_bw_kbps, tcp_cap,
@@ -93,9 +94,11 @@ def seg_waterfill(links: torch.Tensor, active: torch.Tensor,
 def _operands(links, active, link_bw_kbps, tcp_cap):
     """The kernel's operands: ``links`` int32 (16-byte aligned: the kernel
     reads a flow's 4 ids at once) and ``active`` bool, cast only where
-    their dtype differs, every input checked; then the outputs ``rates``
-    [F] and ``load`` [E]."""
+    their dtype differs, every input checked (none may require grad in
+    grad mode); then the outputs ``rates`` [F] and ``load`` [E]."""
     F, E = links.shape[0], link_bw_kbps.shape[0]
+    check_no_grad("seg_waterfill", links=links, active=active,
+                  link_bw_kbps=link_bw_kbps, tcp_cap=tcp_cap)
     if links.dtype != torch.int32:
         links = links.to(torch.int32)
     if active.dtype != torch.bool:

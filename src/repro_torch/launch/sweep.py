@@ -13,6 +13,9 @@ its standalone ``run_sim`` bit for bit, by construction:
     scenarios [S] --+--> flatten [P*S*N] --> one cell at a time --> [P, S, N]
     seeds     [N] --+
 
+``make_grad_fn`` differentiates the same grid's soft-placement surrogate
+in the policy weights with torch autograd.
+
     PYTHONPATH=src python -m repro_torch.launch.sweep --policies all \\
         --seeds 2 --horizon 120 --table avg_runtime --out sweep.json
     PYTHONPATH=src python -m repro_torch.launch.sweep --device cpu \\
@@ -33,7 +36,8 @@ from repro_torch.core import (SimConfig, get_policy, list_policies,
                               sweep_summaries, sweep_table)
 from repro_torch.core import stats
 from repro_torch.core.engine import (run_sim_chunked, simulate,
-                                     stream_chunks, use_deterministic)
+                                     simulate_chunk, stream_chunks,
+                                     use_deterministic)
 from repro_torch.core.report import json_clean
 from repro_torch.core.scenario import (ScenarioSpec, build_scenarios,
                                        default_scenarios, stack_tree)
@@ -121,11 +125,102 @@ def _cell(sims: SimState, pols: PolicyParams, rps: RunParams, b: int,
             tree_map(lambda x: x[s], rps))
 
 
-def make_grad_fn(*args, **kwargs):
-    """The differentiated sweep comes with the autodiff slice."""
-    raise NotImplementedError(
-        "make_grad_fn is not ported yet: it comes with the autodiff slice "
-        "of repro_torch")
+def _grad_of(value: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """d value / d w, zeros where the value does not depend on ``w`` (a
+    cell that made no soft decision)."""
+    if not value.requires_grad:
+        return torch.zeros_like(w)
+    g, = torch.autograd.grad(value, w, allow_unused=True)
+    return torch.zeros_like(w) if g is None else g
+
+
+def make_grad_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,
+                 objective: str = "soft_blend", chunk: int | None = None,
+                 devices=None):
+    """The differentiated sweep: ``fn(sims, pols, rps) -> (obj [P],
+    grad [P, NUM_POLICY_WEIGHTS])``, the per-policy mean over the [S, N]
+    scenario/seed cells of the surrogate objective
+    (``stats.soft_objective``) and its gradient in
+    ``PolicyParams.weights``, by torch autograd.
+
+    Requires ``cfg.soft_placement``.  The dynamics stay the hard argmin,
+    so gradients flow through the per-decision score rows; the one
+    continuous path through the state is the periodic delay refresh,
+    which bakes ``weights[util]``/``weights[cross_leaf]`` into
+    ``net.comm_cost``.  Cells run one after another through the
+    single-cell engine, each on a leaf copy of its policy's weights.
+
+    ``chunk=None`` runs each cell's whole horizon and differentiates its
+    objective.  A ``chunk`` streams it: the state's leaves are detached at
+    every chunk boundary, each chunk's numerator (from a fresh
+    ``SummaryAcc``) is differentiated and its gradient added to an f64
+    host total, the chunk folded into the ``OnlineSummary``, and at the
+    end the totals are divided by the final count (piecewise constant in
+    the weights), so one chunk's graph is freed before the next runs.
+    Values equal the stacked ones at any chunk size; gradients too, except
+    the ``util``/``cross_leaf`` components when a boundary falls while
+    decisions are still being made (truncated back-propagation through
+    ``comm_cost``, as in the JAX package).  The CUDA kernels run forward
+    only: none of their inputs depends on the weights.
+    """
+    if not cfg.soft_placement:
+        raise ValueError(
+            "make_grad_fn requires cfg.soft_placement=True — with it off "
+            "the surrogate sums are constant 0.0 and every gradient "
+            "vanishes identically")
+    if objective not in stats.SOFT_OBJECTIVES:
+        raise KeyError(f"unknown soft objective {objective!r}; known: "
+                       f"{list(stats.SOFT_OBJECTIVES)}")
+    check_devices(devices)
+    if chunk is not None:
+        stats.check_chunk(chunk, cfg.n_containers)
+
+    def stacked_cell(sim, w, rp):
+        _, metrics = simulate(sim, cfg, PolicyParams(weights=w), n_hosts,
+                              n_nodes, horizon, rp)
+        value = stats.soft_objective(metrics, objective)
+        return value.detach(), _grad_of(value, w)
+
+    def chunked_cell(sim, w, rp):
+        pol = PolicyParams(weights=w)
+        online = stats.online_init()
+        gnum = np.zeros(w.shape, np.float64)
+        for t0 in range(0, horizon, chunk):
+            sim = tree_map(torch.Tensor.detach, sim)
+            sim, acc = simulate_chunk(sim, stats.acc_init(w.device), t0, cfg,
+                                      pol, n_hosts, n_nodes,
+                                      min(chunk, horizon - t0), rp)
+            num, _ = stats.soft_num_den(acc, objective)
+            gnum += _grad_of(num, w).double().cpu().numpy()
+            online = stats.online_fold(online, acc)
+        num, den = stats.soft_num_den(online, objective)
+        den = max(float(den), 1.0)
+        return torch.tensor(num / den), torch.tensor(gnum / den)
+
+    cell_fn = stacked_cell if chunk is None else chunked_cell
+
+    def fn(sims, pols, rps):
+        _check_topology_uniform(sims)
+        device = sims.t.device
+        use_deterministic(device)
+        P, S, N, B = _grid_shape(sims, pols)
+        vals, grads = [], []
+        with torch.enable_grad():
+            for b in range(B):
+                sim, pol, rp = _cell(sims, pols, rps, b, S, N)
+                w = pol.weights.detach().clone().requires_grad_()
+                v, g = cell_fn(sim, w, rp)
+                vals.append(v.to(device, torch.float64))
+                grads.append(g.to(device, torch.float64))
+        # the mean over a policy's cells, in f64 (the chunked path's
+        # totals are f64 already)
+        mean = lambda xs: (torch.stack(xs).reshape((P, S * N)
+                                                   + tuple(xs[0].shape))
+                           .mean(1).to(torch.float32))
+        return mean(vals), mean(grads)
+
+    fn.n_devices = 1
+    return fn
 
 
 def make_sweep_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,

@@ -5,15 +5,18 @@ Counterpart of ``repro.launch.tune``.  A policy IS a point in weight space
 vectors, put them on the sweep's policy axis, run the W x scenario x seed
 population (``launch.sweep``'s stacked or streamed grid) and rank the
 samples by a summary objective (``report.tune_table``).  Random and
-per-dimension grid search (:func:`run_tune`) and the cross-entropy method
-on the hard simulator (:func:`run_tune_cem`) are ported; the gradient
-search comes with the autodiff slice and the multi-process fabric with
-its own.
+per-dimension grid search (:func:`run_tune`), gradient descent on the
+soft-placement surrogate with hard-simulator re-scoring
+(:func:`run_tune_grad`) and the cross-entropy method on the hard
+simulator (:func:`run_tune_cem`); the multi-process fabric comes with its
+own slice.
 
     PYTHONPATH=src python -m repro_torch.launch.tune --samples 16 --seeds 2 \\
         --objective avg_runtime --out tune.json
     PYTHONPATH=src python -m repro_torch.launch.tune --device cpu \\
         --samples 4 --horizon 10 --method cem --steps 2 --batch 4
+    PYTHONPATH=src python -m repro_torch.launch.tune --device cpu \\
+        --method grad --steps 2 --batch 2 --eval-every 1 --horizon 10
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import torch
 
 from repro_torch.core import (SimConfig, get_policy, sweep_summaries,
                               tune_table)
+from repro_torch.core import stats
 from repro_torch.core.report import json_clean
 from repro_torch.core.scenario import ScenarioSpec, build_scenarios
 from repro_torch.core.scheduling import validate_weights, weight_index
@@ -35,8 +39,8 @@ from repro_torch.core.types import (NUM_POLICY_WEIGHTS, WEIGHT_NAMES,
                                     ExecPlan, PolicyParams, device_name,
                                     resolve_device)
 from repro_torch.launch.execargs import add_exec_args
-from repro_torch.launch.sweep import (_synchronize, make_stream_fn,
-                                      make_sweep_fn)
+from repro_torch.launch.sweep import (_synchronize, make_grad_fn,
+                                      make_stream_fn, make_sweep_fn)
 
 # Default search space: the cost-model weights of the network-aware score
 # plus the co-location / consolidation trade-off.  Everything not named
@@ -124,15 +128,18 @@ class TuneResult:
 class GradTuneResult(TuneResult):
     """A :class:`TuneResult` of an iterative search (the final population
     and its oracle scores) plus its trajectory: the best oracle-scored
-    candidate ever seen and a per-step history.  (The JAX package's
-    surrogate fields come with the gradient search, in the autodiff
-    slice.)"""
+    candidate ever seen (never worse than the incumbent, which is scored
+    first), a per-step history and, for the gradient search, the final
+    surrogate of each candidate."""
 
-    method: str = "cem"
-    best_oracle: float = float("nan")
+    method: str = "grad"
+    surrogate: np.ndarray | None = None   # [M] final surrogate per candidate
+    surrogate_name: str | None = None
+    best_oracle: float = float("nan")     # best oracle score ever seen
     best_oracle_weights: np.ndarray | None = None
-    history: list | None = None
-    oracle_evals: int = 0
+    history: list | None = None           # per-step dicts (step, tau, ...)
+    surrogate_evals: int = 0              # candidate-evals spent on grad steps
+    oracle_evals: int = 0                 # candidate-evals spent on re-scoring
 
 
 def _default_scenarios() -> list[ScenarioSpec]:
@@ -213,22 +220,118 @@ def run_tune(n_samples: int = 16, seeds: Sequence[int] = (0,),
 
 
 def _space_bounds(space: dict[str, tuple[float, float]]):
-    """(searched index array, lo [W], hi [W])."""
+    """(searched index array, mask [W], lo [W], hi [W]): the search only
+    moves the searched dimensions."""
     idx = np.asarray([weight_index(name) for name in space], np.int64)
+    mask = np.zeros((NUM_POLICY_WEIGHTS,), np.float32)
     lo = np.full((NUM_POLICY_WEIGHTS,), -np.inf, np.float32)
     hi = np.full((NUM_POLICY_WEIGHTS,), np.inf, np.float32)
+    mask[idx] = 1.0
     for name, (a, b) in space.items():
         lo[weight_index(name)] = a
         hi[weight_index(name)] = b
-    return idx, lo, hi
+    return idx, mask, lo, hi
 
 
-def run_tune_grad(*args, **kwargs):
-    """The gradient search descends the soft-placement surrogate, which
-    comes with the autodiff slice."""
-    raise NotImplementedError(
-        "tune --method grad is not ported yet: it comes with the autodiff "
-        "slice of repro_torch")
+def run_tune_grad(steps: int = 24, batch: int = 8, lr: float = 0.1,
+                  tau0: float = 1.0, tau_decay: float = 0.85,
+                  tau_min: float = 0.05, eval_every: int = 6,
+                  seeds: Sequence[int] = (0,),
+                  scenarios: Sequence[ScenarioSpec] | None = None,
+                  cfg: SimConfig | None = None, n_hosts: int = 20,
+                  n_spine: int = 2, n_leaf: int = 4,
+                  objective: str = "avg_runtime",
+                  surrogate: str = "soft_blend", base: str = "netaware",
+                  space: dict[str, tuple[float, float]] | None = None,
+                  seed: int = 0, plan: ExecPlan | None = None,
+                  device=None) -> GradTuneResult:
+    """Gradient search on ``device``: descend the differentiable
+    soft-placement surrogate, trust only the hard simulator.
+
+    ``batch`` candidates (row 0 the untouched ``base`` policy) ride the
+    policy axis of ``sweep.make_grad_fn`` over a ``soft_placement=True``
+    twin of ``cfg`` (streamed with ``plan.chunk``); each step is plain
+    gradient descent on the searched dimensions, clipped to ``space``'s
+    bounds, while the softmax temperature anneals ``tau0 -> tau_min`` by
+    ``tau_decay`` a step.  Before the first step, every ``eval_every``
+    steps and after the last, the candidates are re-scored on the hard
+    simulator (``soft_placement=False``, under ``torch.no_grad``) by the
+    true ``objective``, and the best candidate ever scored is kept; the
+    incumbent is scored first, so the result never ranks below it."""
+    plan = ExecPlan() if plan is None else plan
+    cfg = plan.apply_to_config(cfg or SimConfig())
+    device = resolve_device(device)
+    scenarios = list(scenarios if scenarios is not None
+                     else _default_scenarios())
+    space = DEFAULT_SPACE if space is None else space
+    _, mask, lo, hi = _space_bounds(space)
+    minimize = objective not in MAXIMIZE
+    better = (lambda a, b: a < b) if minimize else (lambda a, b: a > b)
+
+    W = sample_weights(batch, seed=seed, base=base, space=space)
+    validate_weights(W, "tune grad candidates: ")
+    soft = dataclasses.replace(cfg, soft_placement=True)
+    hard = dataclasses.replace(cfg, soft_placement=False)
+    net_spec, sims, rps = build_scenarios(scenarios, soft, n_hosts=n_hosts,
+                                          n_spine=n_spine, n_leaf=n_leaf,
+                                          seeds=seeds, device=device)
+    gfn = make_grad_fn(soft, net_spec.n_hosts, net_spec.n_nodes,
+                       cfg.horizon, objective=surrogate, chunk=plan.chunk,
+                       devices=plan.devices)
+    ofn = _make_fn(hard, net_spec, plan)
+
+    def oracle(W):
+        with torch.no_grad():
+            return _mean_scores(ofn, sims, W, rps, scenarios, seeds,
+                                objective)
+
+    def surrogate_step(W, tau):
+        rps_t = rps._replace(tau=torch.full_like(rps.tau, tau))
+        pol = PolicyParams(weights=torch.as_tensor(W, device=device))
+        obj, g = gfn(sims, pol, rps_t)
+        return obj.cpu().numpy(), g.cpu().numpy()
+
+    t_start = time.time()
+    history: list[dict[str, Any]] = []
+    surrogate_evals = 0
+    scores, rows = oracle(W)
+    oracle_evals = batch
+    k = int(np.nanargmin(scores) if minimize else np.nanargmax(scores))
+    best_score, best_w = float(scores[k]), W[k].copy()
+    tau = float(tau0)
+    for step in range(steps):
+        obj_s, g = surrogate_step(W, tau)
+        surrogate_evals += batch
+        g = g.astype(np.float32) * mask[None, :]
+        W = np.clip(W - lr * g, lo[None, :], hi[None, :]).astype(np.float32)
+        rec = {"step": step, "tau": round(tau, 6),
+               "surrogate_mean": float(np.mean(obj_s)),
+               "grad_norm": float(np.linalg.norm(g) / max(batch, 1))}
+        if (step + 1) % eval_every == 0 or step == steps - 1:
+            scores, rows = oracle(W)
+            oracle_evals += batch
+            if np.isfinite(scores).any():
+                k = int(np.nanargmin(scores) if minimize
+                        else np.nanargmax(scores))
+                if better(scores[k], best_score):
+                    best_score, best_w = float(scores[k]), W[k].copy()
+            rec["oracle_best"] = (float(np.nanmin(scores)) if minimize
+                                  else float(np.nanmax(scores)))
+        history.append(rec)
+        tau = max(tau * tau_decay, tau_min)
+
+    final_sur, _ = surrogate_step(W, tau)
+    surrogate_evals += batch
+    _synchronize(device)
+    return GradTuneResult(
+        weights=W, scores=scores, objective=objective, minimize=minimize,
+        rows=rows, scenarios=scenarios, seeds=tuple(seeds),
+        wall_s=round(time.time() - t_start, 2), steady_s=None,
+        compile_cache_misses=0, n_devices=gfn.n_devices, method="grad",
+        surrogate=final_sur, surrogate_name=surrogate,
+        best_oracle=best_score, best_oracle_weights=best_w,
+        history=history, surrogate_evals=surrogate_evals,
+        oracle_evals=oracle_evals)
 
 
 def run_tune_cem(steps: int = 6, batch: int = 16, elite_frac: float = 0.25,
@@ -252,7 +355,7 @@ def run_tune_cem(steps: int = 6, batch: int = 16, elite_frac: float = 0.25,
     scenarios = list(scenarios if scenarios is not None
                      else _default_scenarios())
     space = DEFAULT_SPACE if space is None else space
-    idx, lo, hi = _space_bounds(space)
+    idx, _, lo, hi = _space_bounds(space)
     minimize = objective not in MAXIMIZE
     better = (lambda a, b: a < b) if minimize else (lambda a, b: a > b)
 
@@ -302,9 +405,10 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--method", default="random",
                     choices=["random", "grid", "grad", "cem"],
-                    help="random/grid = one-shot population ranking; cem = "
-                         "cross-entropy on the hard simulator; grad raises "
-                         "until the autodiff slice is ported")
+                    help="random/grid = one-shot population ranking; "
+                         "grad = descend the soft-placement surrogate "
+                         "with hard-simulator re-scoring; cem = "
+                         "cross-entropy on the hard simulator")
     ap.add_argument("--samples", type=int, default=16)
     ap.add_argument("--seeds", type=int, default=1,
                     help="number of seeds (0..n-1) per cell")
@@ -319,12 +423,26 @@ def main(argv=None) -> None:
                     help="(random/grid) coordinate-profile grid instead of "
                          "random draws")
     ap.add_argument("--seed", type=int, default=0, help="search RNG seed")
-    g = ap.add_argument_group("cem")
-    g.add_argument("--steps", type=int, default=6, help="optimizer steps")
-    g.add_argument("--batch", type=int, default=16,
-                   help="candidates per step")
+    g = ap.add_argument_group("grad / cem")
+    g.add_argument("--steps", type=int, default=None,
+                   help="optimizer steps (default: 24 grad, 6 cem)")
+    g.add_argument("--batch", type=int, default=None,
+                   help="candidates per step (default: 8 grad, 16 cem)")
+    g.add_argument("--lr", type=float, default=0.1,
+                   help="(grad) gradient-descent step size")
+    g.add_argument("--tau0", type=float, default=1.0,
+                   help="(grad) initial softmax temperature")
+    g.add_argument("--tau-decay", type=float, default=0.85,
+                   help="(grad) per-step temperature decay factor")
+    g.add_argument("--tau-min", type=float, default=0.05,
+                   help="(grad) temperature floor")
+    g.add_argument("--eval-every", type=int, default=6,
+                   help="(grad) hard-simulator re-scoring period in steps")
+    g.add_argument("--surrogate", default="soft_blend",
+                   choices=sorted(stats.SOFT_OBJECTIVES),
+                   help="(grad) differentiable objective to descend")
     g.add_argument("--elite-frac", type=float, default=0.25,
-                   help="elite fraction per refit")
+                   help="(cem) elite fraction per refit")
     add_exec_args(ap, dist=True)
     ap.add_argument("--top", type=int, default=10)
     ap.add_argument("--out", default=None,
@@ -333,8 +451,6 @@ def main(argv=None) -> None:
                     help="torch device to run on (default cuda)")
     args = ap.parse_args(argv)
 
-    if args.method == "grad":
-        run_tune_grad()
     plan = ExecPlan.from_args(args)
     device = resolve_device(args.device)
     n_leaf = max(4, args.hosts // 5)
@@ -342,8 +458,14 @@ def main(argv=None) -> None:
                   n_hosts=args.hosts, n_spine=max(2, n_leaf // 4),
                   n_leaf=n_leaf, objective=args.objective, base=args.base,
                   seed=args.seed, plan=plan, device=device)
-    if args.method == "cem":
-        res = run_tune_cem(steps=args.steps, batch=args.batch,
+    if args.method == "grad":
+        res = run_tune_grad(steps=args.steps or 24, batch=args.batch or 8,
+                            lr=args.lr, tau0=args.tau0,
+                            tau_decay=args.tau_decay, tau_min=args.tau_min,
+                            eval_every=args.eval_every,
+                            surrogate=args.surrogate, **common)
+    elif args.method == "cem":
+        res = run_tune_cem(steps=args.steps or 6, batch=args.batch or 16,
                            elite_frac=args.elite_frac, **common)
     else:
         res = run_tune(n_samples=args.samples,
@@ -357,7 +479,12 @@ def main(argv=None) -> None:
     if isinstance(res, GradTuneResult):
         arrow = "min" if res.minimize else "max"
         print(f"# best oracle {res.objective} ({arrow}): "
-              f"{res.best_oracle:.4f} after {res.oracle_evals} evals")
+              f"{res.best_oracle:.4f} after {res.oracle_evals} oracle + "
+              f"{res.surrogate_evals} surrogate evals")
+        if res.method == "grad" and res.history:
+            taus = [h["tau"] for h in res.history]
+            print(f"# tau annealed {taus[0]:g} -> {taus[-1]:g} "
+                  f"({res.surrogate_name} surrogate)")
     print(res.table(args.top))
     if args.out:
         out = {"method": args.method,

@@ -234,9 +234,9 @@ def test_entry_points_refuse_what_this_slice_lacks():
     with pytest.raises(NotImplementedError, match="multi-process fabric"):
         ExecPlan(procs=2)
     assert ExecPlan(telescope=False, procs=1, devices=1).delay_kernel is None
-    cfg = SimConfig(soft_placement=True, horizon=2)
+    cfg = SimConfig(soft_placement=True, batched_placement=False, horizon=2)
     spec, sim0 = torch_state(cfg)
-    with pytest.raises(NotImplementedError, match="autodiff"):
+    with pytest.raises(ValueError, match="batched_placement"):
         run_sim(sim0, cfg, get_policy("firstfit", device="cpu"),
                 spec.n_hosts, spec.n_nodes, 2)
     with pytest.raises(RuntimeError, match="CUDA"):

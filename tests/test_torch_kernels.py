@@ -9,7 +9,8 @@ card and no JAX:
 
 Contracts: seg_waterfill rates bit for bit, load within rtol 2e-6;
 fw_minplus bit for bit on dyadic weights, rtol 1e-5 otherwise; the plain
-path's segment sums on the card bit for bit with the CPU's.
+path's segment sums on the card bit for bit with the CPU's; both kernels
+refuse, in grad mode, a CUDA input that requires grad.
 """
 import pytest
 
@@ -245,6 +246,35 @@ def test_cuda_kernels_match_plain_versions():
     D_k = floyd_warshall(torch.tensor(A, device=dev))
     assert torch.equal(D_k, floyd_warshall_ref(torch.tensor(A, device=dev)))
     assert bool((D_k.cpu()[torch.tensor(apart)] == INF).all())
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_an_input_that_requires_grad():
+    """The simulator's kernels have no backward: on a CUDA input that
+    requires grad they raise in grad mode, naming the input, and launch
+    under torch.no_grad."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU "
+                    "interpreter (chip_smoke.py runs the kernels on the "
+                    "card)")
+    dev = torch.device("cuda")
+    flows = [torch.as_tensor(x).to(dev) for x in random_flows(600, 28, 2)]
+    for launch in (seg_waterfill, _launch_smem, _launch_global):
+        for i, name in ((2, "link_bw_kbps"), (3, "tcp_cap")):
+            args = list(flows)
+            args[i] = args[i].clone().requires_grad_()
+            with pytest.raises(RuntimeError, match=name):
+                launch(*args)
+            with torch.no_grad():
+                rates, load = launch(*args)
+            assert not (rates.requires_grad or load.requires_grad)
+    A = torch.tensor(random_adjacency(100, 100, False), device=dev)
+    with pytest.raises(RuntimeError, match="'A'"):
+        floyd_warshall(A.requires_grad_())
+    with torch.no_grad():
+        torch.testing.assert_close(floyd_warshall(A),
+                                   floyd_warshall_ref(A.detach()),
+                                   rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.cuda

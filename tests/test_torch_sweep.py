@@ -276,8 +276,10 @@ def test_grid_with_differing_topology_raises():
     pl[1, 0, 0, 1, 0] = 5
     bad = sims._replace(net=sims.net._replace(path_links=pl))
     pols = tsweep.stack_policies(POLICIES, device="cpu")
+    soft = SimConfig(**SMALL, soft_placement=True)
     for fn in (tsweep.make_sweep_fn(cfg, 8, 14, 2),
-               tsweep.make_stream_fn(cfg, 8, 14, 2, chunk=1)):
+               tsweep.make_stream_fn(cfg, 8, 14, 2, chunk=1),
+               tsweep.make_grad_fn(soft, 8, 14, 2)):
         with pytest.raises(ValueError, match="net.path_links"):
             out = fn(bad, pols, rps)
             assert out is None
@@ -287,8 +289,10 @@ def test_grid_with_differing_topology_raises():
                               device="cpu")
     with pytest.raises(NotImplementedError, match="multi-process fabric"):
         tsweep.make_sweep_fn(cfg, 8, 14, 2, devices=2)
-    with pytest.raises(NotImplementedError, match="autodiff"):
+    with pytest.raises(ValueError, match="soft_placement"):
         tsweep.make_grad_fn(cfg, 8, 14, 2)
+    with pytest.raises(NotImplementedError, match="multi-process fabric"):
+        tsweep.make_grad_fn(soft, 8, 14, 2, devices=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tsweep.run_sweep(policies=POLICIES, cfg=cfg)

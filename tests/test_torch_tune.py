@@ -7,7 +7,7 @@
   one bit for bit (the first depends on the numpy seed alone; the elite
   sets agree on this grid, so the later ones follow), the oracle scores
   within rtol 1e-5;
-* the gradient search and several processes raise, naming their slices.
+* several processes and telescoping raise, naming their slices.
 """
 import contextlib
 import functools
@@ -135,8 +135,6 @@ def test_run_tune_cem_matches_jax(monkeypatch):
 
 
 def test_unported_searches_raise_naming_their_slice():
-    with pytest.raises(NotImplementedError, match="autodiff"):
-        ttune.main(["--device", "cpu", "--method", "grad"])
     with pytest.raises(NotImplementedError, match="multi-process fabric"):
         ttune.main(["--device", "cpu", "--procs", "2"])
     with pytest.raises(NotImplementedError, match="multi-process fabric"):
