@@ -92,6 +92,20 @@ Phases, in order, each of which fails the script when it fails:
      (6 steps x 4 candidates, eval every 3, lr 0.3) on the JAX test's
      small config under slow_net: the best oracle score finite and no
      worse than the incumbent's, its wall time printed;
+  5d. event-horizon telescoping (ExecPlan(telescope=True)), the engine
+     metered (its macro steps, the cheap ticks it takes and their host
+     time): (i) phase 5's run telescoped: final state bit-identical to
+     phase 5's, its OnlineSummary equal to online_from_metrics of phase
+     5's series (integers exactly, floats within rtol 3e-6), one
+     seg_waterfill launch a full tick and 4 fw_minplus, the full ticks
+     and ticks/s printed; (ii) the drained tail: the same fleet and
+     workload over horizon 400, a refresh every 100, chunks of 128,
+     streamed per tick and telescoped in turns (per tick, telescoped,
+     telescoped, per tick): finals bit-identical, summaries equal as
+     above, 4 fw_minplus a run and one seg_waterfill a full tick, fewer
+     full ticks than the horizon; each run's ticks/s, the full ticks,
+     the host time a cheap tick and the quiescence test's a full tick
+     printed;
   6. reduced zamba2 served on the card (kernels) against the port's CPU
      run (plain versions) from the same weights and prompts: prefill and
      decode logits within 4 bf16 ulps of their largest magnitude while
@@ -1481,6 +1495,144 @@ def autodiff_phase(real):
     grad_tune()
 
 
+# ---------------------------------------------------------------------------
+# Phase 5d: event-horizon telescoping
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def telescope_meter():
+    """Meter the telescoped engine for the runs inside the block: its
+    macro steps (one per full tick: ``engine._advance`` follows each), the
+    cheap ticks ``engine._cheap_ticks`` takes and the host time of both,
+    each call closed by a synchronize.  Yields a dict of the totals."""
+    advance, cheap = engine._advance, engine._cheap_ticks
+    seen = {"steps": 0, "cheap": 0, "advance_s": 0.0, "cheap_s": 0.0}
+
+    def timed(fn, key):
+        def wrapper(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            seen[key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    def metered_cheap(sim, t, *rest):
+        sim, t2 = timed(cheap, "cheap_s")(sim, t, *rest)
+        seen["cheap"] += t2 - t
+        return sim, t2
+
+    def metered_advance(*args):
+        seen["steps"] += 1
+        return timed(advance, "advance_s")(*args)
+
+    engine._advance, engine._cheap_ticks = metered_advance, metered_cheap
+    try:
+        yield seen
+    finally:
+        engine._advance, engine._cheap_ticks = advance, cheap
+
+
+def differing_leaves(a, b):
+    la, lb = _leaves(a), _leaves(b)
+    return [k for k in la if not torch.equal(la[k], lb[k])]
+
+
+def telescoped_run(run, horizon, n_fw, what):
+    """One metered telescoped run: (its output, wall s, full ticks, the
+    meter's totals); the launches checked against the full ticks (one
+    seg_waterfill each) and ``n_fw`` fw_minplus."""
+    with telescope_meter() as meter:
+        out, wall, _, counts = measured(run)
+    n_full = horizon - meter["cheap"]
+    if meter["steps"] != n_full:
+        raise AssertionError(f"{what}: {meter['steps']} macro steps, but "
+                             f"{meter['cheap']} of {horizon} ticks cheap")
+    check_launches(counts, 1, n_full, n_fw, what)
+    return out, wall, n_full, meter
+
+
+def telescope_phase(real, horizon=400, interval=100, chunk=128):
+    """Phase 5d: (i) phase 5's run telescoped, against phase 5's; (ii) the
+    same fleet and workload over a drained tail (``horizon`` ticks, a
+    refresh every ``interval``, chunks of ``chunk``), streamed per tick
+    and telescoped in turns."""
+    cfg, spec, sim0, policy = real["setup"]
+    H, N = spec.n_hosts, spec.n_nodes
+    n_fw = len(range(0, cfg.horizon, cfg.delay_update_interval))
+    (final, online), wall, n_full, meter = telescoped_run(
+        lambda: run_sim(sim0, cfg, policy, H, N, cfg.horizon,
+                        plan=ExecPlan(telescope=True)),
+        cfg.horizon, n_fw, "telescoped real-size run")
+    bad = differing_leaves(real["final"], final)
+    if bad:
+        raise AssertionError(f"telescoped final state differs from phase "
+                             f"5's in {bad}")
+    check_online(online, online_from_metrics(real["metrics"]),
+                 "telescoped real-size run")
+    log(f"telescope real size, fw, netaware, horizon {cfg.horizon}, refresh "
+        f"every {cfg.delay_update_interval}: {n_full} full ticks of "
+        f"{cfg.horizon}, {cfg.horizon / wall:.3f} ticks/s ({wall:.3f} s); "
+        f"final state bit-identical to phase 5's, summary equal to its "
+        f"series' fold; launches {n_full} seg_waterfill, {n_fw} fw_minplus")
+    del final, online
+    tail = dataclasses.replace(cfg, horizon=horizon,
+                               delay_update_interval=interval)
+    n_fw = len(range(0, horizon, interval))
+    plans = {"per tick": ExecPlan(chunk=chunk),
+             "telescoped": ExecPlan(chunk=chunk, telescope=True)}
+    firsts, turns = {}, {name: [] for name in plans}
+    for name in ("per tick", "telescoped", "telescoped", "per tick"):
+        def go():
+            return run_sim(sim0, tail, policy, H, N, horizon,
+                           plan=plans[name])
+        if name == "per tick":
+            out, wall, _, counts = measured(go)
+            check_launches(counts, 1, horizon, n_fw, "drained tail, per tick")
+            n_full, meter = horizon, None
+        else:
+            out, wall, n_full, meter = telescoped_run(
+                go, horizon, n_fw, "drained tail, telescoped")
+        if name in firsts:
+            bad = differing_leaves(firsts[name][0], out[0])
+            if bad:
+                raise AssertionError(f"drained tail, {name}: second run's "
+                                     f"final state differs in {bad}")
+        firsts.setdefault(name, out)
+        turns[name].append((horizon / wall, n_full, meter))
+    (f_off, s_off), (f_on, s_on) = firsts["per tick"], firsts["telescoped"]
+    bad = differing_leaves(f_off, f_on)
+    if bad:
+        raise AssertionError(f"drained tail: telescoped final state differs "
+                             f"from the per-tick one in {bad}")
+    check_online(s_on, s_off, "drained tail")
+    n_full = turns["telescoped"][0][1]
+    if n_full >= horizon:
+        raise AssertionError(f"drained tail: {n_full} full ticks of "
+                             f"{horizon}, nothing telescoped")
+    rep = summarize(f_on, s_on)
+    per_cheap = [m["cheap_s"] / max(m["cheap"], 1) * 1e6
+                 for _, _, m in turns["telescoped"]]
+    per_step = [(m["advance_s"] - m["cheap_s"]) / m["steps"] * 1e3
+                for _, _, m in turns["telescoped"]]
+    ratios = [a[0] / b[0] for a, b in zip(turns["telescoped"],
+                                          turns["per tick"])]
+    log(f"telescope drained tail, fw, netaware, horizon {horizon}, refresh "
+        f"every {interval}, chunk {chunk}, in turns (ticks/s): per tick "
+        f"{', '.join(f'{r:.3f}' for r, _, _ in turns['per tick'])}; "
+        f"telescoped "
+        f"{', '.join(f'{r:.3f}' for r, _, _ in turns['telescoped'])}; "
+        f"telescoped / per tick by turn pair "
+        f"{', '.join(f'{r:.4f}' for r in ratios)}; {n_full} full ticks of "
+        f"{horizon} (completed {rep['n_completed']} of {rep['n_containers']},"
+        f" the last finish at tick "
+        f"{f_on.containers.finish_t.max().item():.0f}); host time a cheap "
+        f"tick {', '.join(f'{u:.1f}' for u in per_cheap)} us, the "
+        f"quiescence test "
+        f"and fold a full tick {', '.join(f'{u:.3f}' for u in per_step)} ms; "
+        f"finals bit-identical, summaries equal; launches a telescoped run "
+        f"{n_full} seg_waterfill, {n_fw} fw_minplus")
+
+
 def _leaves(t, prefix=""):
     out = {}
     for k, v in t._asdict().items():
@@ -1518,6 +1670,7 @@ def main():
     streaming_run(real)
     sweep_phase()
     autodiff_phase(real)
+    telescope_phase(real)
     del real
     reduced_serve()
     lm_counts = full_width_serve()

@@ -21,7 +21,11 @@ sums equal the CPU's; every entry point turns on
 ``torch.use_deterministic_algorithms`` (:func:`use_deterministic`) so
 that no op of the tick takes an order that changes from run to run.
 ``run_sim`` stacks the per-tick metrics; with ``ExecPlan(chunk=...)`` it
-streams them into a per-chunk accumulator (:func:`run_sim_chunked`).
+streams them into a per-chunk accumulator (:func:`run_sim_chunked`), and
+with ``ExecPlan(telescope=True)`` it advances quiescent intervals in
+cheap ticks up to a closed-form event horizon
+(:func:`simulate_telescoped`), the final state the per-tick run's bit for
+bit; each of its decisions is a read-back to the host.
 With ``SimConfig.soft_placement`` the schedule phase also sums a softmax
 surrogate of its decisions (:func:`phase_schedule_soft`), which torch
 autograd differentiates in the policy weights (``launch.sweep.make_grad_fn``);
@@ -34,7 +38,7 @@ from typing import NamedTuple, Tuple
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core import network, scheduling, stats
+from repro_torch.core import network, scheduling, stats, workload
 from repro_torch.core.datacenter import SimConfig
 from repro_torch.core.scheduling import BIG, INT_BIG, feasible_hosts
 from repro_torch.core.types import (
@@ -533,12 +537,19 @@ def phase_cost(sim: SimState) -> SimState:
 # The tick and the driver
 # ---------------------------------------------------------------------------
 class TickInfo(NamedTuple):
-    """Side outputs of one tick: the flow allocation it used and whether
-    the delay refresh fired (what the telescoping slice will read)."""
+    """Side outputs of one tick that the telescoping engine reads to judge
+    quiescence: the flow allocation it used, the container fields
+    ``phase_flows`` read (captured after the schedule, before the flows:
+    when the tick's later phases leave them as they were, the next tick's
+    rates are these) and whether the delay refresh fired."""
     comm_rates: torch.Tensor    # f32[C]
     mig_rates: torch.Tensor     # f32[C]
     flow_active: torch.Tensor   # bool[2C]
     all_rates: torch.Tensor     # f32[2C]
+    mid_status: torch.Tensor    # i32[C]
+    mid_host: torch.Tensor      # i32[C]
+    mid_peer: torch.Tensor      # i32[C]
+    mid_mig_dst: torch.Tensor   # i32[C]
     refreshed: bool
 
 
@@ -576,6 +587,9 @@ def make_tick_ext(cfg: SimConfig, policy: PolicyParams, params: RunParams,
             sim, n_arrived = phase_arrive(sim)
         with record_function("phase_schedule"):
             sim, soft = phase_schedule_soft(sim, cfg, policy, params)
+        # the state phase_flows reads; no later phase writes a tensor in
+        # place, so these references keep its values
+        mid = sim.containers
         with record_function("phase_flows"):
             sim, comm_rates, mig_rates, flow_active, all_rates = \
                 phase_flows(sim, cfg, use_kernel=use_wf_kernel)
@@ -599,8 +613,11 @@ def make_tick_ext(cfg: SimConfig, policy: PolicyParams, params: RunParams,
                               sim.sched.migrations, params, flow_active,
                               all_rates, soft=soft)
         sim = sim._replace(t=sim.t + 1.0)
-        return sim, m, TickInfo(comm_rates, mig_rates, flow_active,
-                                all_rates, every)
+        return sim, m, TickInfo(
+            comm_rates=comm_rates, mig_rates=mig_rates,
+            flow_active=flow_active, all_rates=all_rates,
+            mid_status=mid.status, mid_host=mid.host, mid_peer=mid.comm_peer,
+            mid_mig_dst=mid.mig_dst, refreshed=every)
 
     return tick_ext
 
@@ -617,17 +634,23 @@ def make_tick(cfg: SimConfig, policy: PolicyParams, params: RunParams,
     return tick
 
 
+def _start(sim: SimState, params: RunParams, t0: int) -> SimState:
+    """The runtime link params applied when ``t0 == 0`` only:
+    ``apply_link_params`` rebuilds ``comm_cost``, so applying them again
+    at a later tick would wipe the refreshed delay matrix."""
+    if t0 != 0:
+        return sim
+    return sim._replace(net=network.apply_link_params(
+        sim.net, params.bw_mbps, params.loss))
+
+
 def _tick_loop(sim: SimState, cfg: SimConfig, policy: PolicyParams,
                n_hosts: int, n_nodes: int, params: RunParams, t0: int,
                t1: int, fold, carry):
     """Ticks ``t0 .. t1 - 1`` from ``sim``, each tick's metrics folded into
     ``carry`` by ``fold(carry, tt, metrics)``; returns (state, carry).  The
-    runtime link params are applied first when ``t0 == 0`` only:
-    ``apply_link_params`` rebuilds ``comm_cost``, so applying them again
-    at a later tick would wipe the refreshed delay matrix."""
-    if t0 == 0:
-        sim = sim._replace(net=network.apply_link_params(
-            sim.net, params.bw_mbps, params.loss))
+    runtime link params are applied first when ``t0 == 0`` (:func:`_start`)."""
+    sim = _start(sim, params, t0)
     tick = make_tick(cfg, policy, params, n_hosts, n_nodes)
     for tt in range(t0, t1):
         sim, m = tick(sim, tt)
@@ -676,19 +699,229 @@ def simulate_chunk(sim: SimState, acc: SummaryAcc, t0: int, cfg: SimConfig,
                       acc)
 
 
+# ---------------------------------------------------------------------------
+# Telescoping (macro-tick) engine: quiescent intervals in cheap ticks
+# ---------------------------------------------------------------------------
+def _event_horizon(sim: SimState, info: TickInfo, t: int, t_end: int,
+                   speed: torch.Tensor) -> torch.Tensor:
+    """Closed-form event horizon after the full tick at ``t``: an f32 0-d
+    tensor bounding the cheap-tick indices (cheap ticks run while
+    ``t' < horizon``).  Exact parts: the segment end ``t_end`` (the next
+    refresh tick or the chunk end) and the next arrival, ``ceil`` of the
+    earliest pending ``submit_t`` after ``t`` (queried against ``t``, not
+    ``t + 1``: a submit in ``(t, t + 1]`` arrives at the next tick).
+    Estimated parts, ceil-divisions of the remaining work by the frozen
+    rates and speeds: the earliest comm finish, migration finish, comm
+    trigger and completion.  They only bound the loop: the exact one-step
+    predicates are checked before every cheap tick (:func:`_cheap_ticks`),
+    so equality with the per-tick path never rests on the divisions."""
+    ct = sim.containers
+    dev = ct.status.device
+    t_f = torch.full((), t, dtype=F32, device=dev)
+
+    def ceil_ticks(remaining, rate, mask):
+        k = torch.ceil(remaining / torch.clamp(rate, min=1e-30))
+        return torch.where(mask & (rate > 0), k, float("inf")).min()
+
+    running = ct.status == STATUS_RUNNING
+    horizon = torch.minimum(torch.full((), t_end, dtype=F32, device=dev),
+                            torch.ceil(workload.next_arrival_after(ct, t_f)))
+    for remaining, rate, mask in (
+            (ct.comm_bytes_left, info.comm_rates,
+             ct.status == STATUS_COMMUNICATING),
+            (ct.mig_bytes_left, info.mig_rates,
+             ct.status == STATUS_MIGRATING),
+            (ct.next_comm_at - ct.run_at, speed,
+             running & (ct.n_comms_left > 0)),
+            (ct.duration - ct.run_at, speed,
+             running & (ct.n_comms_left <= 0))):
+        horizon = torch.minimum(horizon,
+                                t_f + ceil_ticks(remaining, rate, mask))
+    return horizon
+
+
+def _cheap_ticks(sim: SimState, t: int, horizon: float, info: TickInfo,
+                 speed: torch.Tensor) -> Tuple[SimState, int]:
+    """Cheap ticks from tick ``t`` while ``t < horizon`` and no event falls
+    on the tick: returns (state, the first tick not taken).  Before each
+    tick the exact one-step predicates of the per-tick phases are checked
+    on the live state (a comm or migration flow finishing, a comm trigger,
+    a completion) and read back as one bool.  A cheap tick makes exactly
+    the f32 updates a quiescent full tick makes, in the per-tick order:
+    ``phase_communicate`` / ``phase_migrate`` progress clamped at 0 and
+    the comm clock, ``phase_execute``'s speed, the retry counters reset
+    for flows, ``phase_cost``'s busy clocks and cost, zero decisions and
+    migrations, and the clock."""
+    ct, hosts = sim.containers, sim.hosts
+    dev = ct.status.device
+    comm = ct.status == STATUS_COMMUNICATING
+    mig = ct.status == STATUS_MIGRATING
+    running = ct.status == STATUS_RUNNING
+    comm_or_mig = comm | mig
+    to_trigger = running & (ct.n_comms_left > 0)
+    to_finish = running & (ct.n_comms_left <= 0)
+    comm_f = comm.to(F32)
+    busy_f = (hosts.n_containers > 0).to(F32)
+    cost_q = (hosts.price * busy_f).sum()          # phase_cost's expression
+    zero = torch.zeros((), dtype=I32, device=dev)
+    while t < horizon:
+        cc = sim.containers
+        comm_left = cc.comm_bytes_left - info.comm_rates
+        mig_left = cc.mig_bytes_left - info.mig_rates
+        run_at = cc.run_at + speed
+        event = ((comm & (comm_left <= 0.0)).any()
+                 | (mig & (mig_left <= 0.0)).any()
+                 | (to_trigger & (run_at >= cc.next_comm_at)).any()
+                 | (to_finish & (run_at >= cc.duration)).any())
+        if bool(event):
+            break
+        conts = cc._replace(
+            comm_bytes_left=torch.clamp(
+                torch.where(comm, comm_left, cc.comm_bytes_left), min=0.0),
+            mig_bytes_left=torch.clamp(
+                torch.where(mig, mig_left, cc.mig_bytes_left), min=0.0),
+            comm_time=cc.comm_time + comm_f,
+            run_at=torch.where(running, run_at, cc.run_at),
+            retry=torch.where(comm_or_mig, 0, cc.retry),
+        )
+        sim = sim._replace(
+            containers=conts,
+            hosts=sim.hosts._replace(busy_time=sim.hosts.busy_time + busy_f),
+            sched=sim.sched._replace(decisions=zero, migrations=zero),
+            total_cost=sim.total_cost + cost_q,
+            t=sim.t + 1.0)
+        t += 1
+    return sim, t
+
+
+def _advance(sim: SimState, acc: SummaryAcc, t: int, info: TickInfo,
+             seg_end: int, cfg: SimConfig, policy: PolicyParams,
+             params: RunParams) -> Tuple[SimState, SummaryAcc, int]:
+    """After the full tick at ``t``: when the state is quiescent, cheap
+    ticks up to the event horizon (capped at ``seg_end``), their metrics
+    folded at once; returns ``(state, acc, t2)``, ``t < t2 <= seg_end``.
+    Quiescent: no delay refresh in the tick (a rebuilt fabric need not
+    keep the rates), the fields ``phase_flows`` read unchanged since it
+    ran (so the frozen rates are the next tick's), nothing waiting for
+    the scheduler, no migration trigger armed and no active flow below
+    ``stall_rate_floor`` (a stall counts a retry every tick).  The test
+    and the horizon come to the host in one copy."""
+    if info.refreshed:
+        return sim, acc, t + 1
+    ct = sim.containers
+    st = ct.status
+    H = sim.hosts.cap.shape[0]
+    quiet = ((st == info.mid_status).all()
+             & (ct.host == info.mid_host).all()
+             & (ct.comm_peer == info.mid_peer).all()
+             & (ct.mig_dst == info.mid_mig_dst).all())
+    quiet &= ~((st == STATUS_INACTIVE) | (st == STATUS_WAITING)).any()
+    util = sim.hosts.used / torch.clamp(sim.hosts.cap, min=1e-6)
+    quiet &= ~((policy.weights[W_MIG_ENABLE] > 0)
+               & (util.amax(dim=1) > params.overload_threshold).any())
+    quiet &= ~(info.flow_active
+               & (info.all_rates < cfg.stall_rate_floor)).any()
+    speed = sim.hosts.speed[torch.clamp(ct.host, 0, H - 1).long(),
+                            ct.ctype.long()]
+    horizon = _event_horizon(sim, info, t, seg_end, speed)
+    quiet, horizon = torch.stack([quiet.to(F32), horizon]).tolist()
+    if not quiet:
+        return sim, acc, t + 1
+    sim, t2 = _cheap_ticks(sim, t + 1, horizon, info, speed)
+    dt = t2 - (t + 1)
+    if dt:
+        # the skipped ticks' metrics, constant over the interval: no
+        # arrivals, decisions or migrations, the frozen flows
+        dev = st.device
+        zero = torch.zeros((), dtype=I32, device=dev)
+        m_q = stats.collect(sim, zero, zero, zero, params, info.flow_active,
+                            info.all_rates)
+        acc = stats.acc_update_weighted(
+            acc, m_q, torch.full((), dt, dtype=I32, device=dev))
+    return sim, acc, t2
+
+
+def _telescope_loop(sim: SimState, cfg: SimConfig, policy: PolicyParams,
+                    n_hosts: int, n_nodes: int, params: RunParams, t0: int,
+                    t1: int, chunk: int, acc: SummaryAcc, on_chunk):
+    """Ticks ``t0 .. t1 - 1`` telescoped, in chunks of ``chunk`` ticks from
+    ``t0``: each chunk's accumulator (the first starting from ``acc``)
+    goes to ``on_chunk`` at its end and is then reset.  Each macro step is
+    one full tick (``make_tick_ext``, the per-tick path's phases), then
+    :func:`_advance`.  The horizon is capped at the next refresh tick and
+    the chunk end, so full ticks fall where the JAX package's do: at every
+    chunk start and every refresh tick (with ``delay_update_interval``
+    0, the refresh at tick 0 only), and after every event.  Returns
+    (state, number of full ticks)."""
+    if cfg.soft_placement:
+        raise ValueError(
+            "telescope + soft_placement is unsupported: the surrogate "
+            "exists for the gradient, and a telescoped run skips the "
+            "per-tick soft sums it differentiates; run grad work through "
+            "the per-tick path (ExecPlan(chunk=...)) instead")
+    sim = _start(sim, params, t0)
+    tick_ext = make_tick_ext(cfg, policy, params, n_hosts, n_nodes)
+    K = cfg.delay_update_interval
+    device = sim.t.device
+    t, n_full = t0, 0
+    chunk_end = min(t0 + chunk, t1)
+    while t < t1:
+        sim, m, info = tick_ext(sim, t)
+        acc = stats.acc_update(acc, m)
+        n_full += 1
+        seg_end = chunk_end if K == 0 else min((t // K + 1) * K, chunk_end)
+        sim, acc, t = _advance(sim, acc, t, info, seg_end, cfg, policy,
+                               params)
+        if t == chunk_end:
+            on_chunk(acc)
+            acc = stats.acc_init(device)
+            chunk_end = min(t + chunk, t1)
+    return sim, n_full
+
+
+def simulate_telescoped(sim: SimState, acc: SummaryAcc, t0: int,
+                        cfg: SimConfig, policy: PolicyParams, n_hosts: int,
+                        n_nodes: int, chunk: int, params: RunParams,
+                        with_stats: bool = False):
+    """:func:`simulate_chunk` twin with event-horizon telescoping: the
+    chunk's quiescent intervals advance in cheap ticks (the linear updates
+    a quiescent full tick makes, the same f32 operations in the same
+    order, so the final state is the per-tick run's bit for bit), their
+    constant metrics folded at once (``stats.acc_update_weighted``:
+    integer sums and peaks exact, float means to ~1 ulp).  Where the JAX
+    engine hoists the delay refresh out of the tick for ``vmap``, the port
+    runs one cell at a time and keeps the per-tick refresh, ending every
+    cheap interval at the next refresh tick.  ``cfg.soft_placement``
+    raises ``ValueError``.  ``with_stats`` also returns the number of
+    full ticks (``chunk - n_full`` were telescoped)."""
+    out = []
+    sim, n_full = _telescope_loop(sim, cfg, policy, n_hosts, n_nodes, params,
+                                  t0, t0 + chunk, chunk, acc, out.append)
+    return (sim, out[0], n_full) if with_stats else (sim, out[0])
+
+
+# ---------------------------------------------------------------------------
+# Streamed runs: the per-tick and the telescoped loop
+# ---------------------------------------------------------------------------
 def stream_chunks(sim0: SimState, cfg: SimConfig, policy: PolicyParams,
                   n_hosts: int, n_nodes: int, horizon: int, chunk: int,
-                  params: RunParams, on_chunk) -> SimState:
+                  params: RunParams, on_chunk,
+                  telescope: bool = False) -> SimState:
     """The horizon in chunks of ``chunk`` ticks (the last may be shorter):
     each tick folded into a ``SummaryAcc``, which goes to ``on_chunk`` at
     its chunk's end and is then reset.  Returns the final state, the
     stacked run's bit for bit.  The chunks are ``simulate_chunk``'s ticks
-    back to back in one loop, so no chunk's input state stays referenced
-    while the next chunk runs."""
+    (``telescope``: ``simulate_telescoped``'s) back to back in one loop,
+    so no chunk's input state stays referenced while the next chunk
+    runs."""
     stats.check_chunk(chunk, int(sim0.containers.status.shape[-1]))
     if horizon < 1:
         raise ValueError("horizon must be >= 1")
     device = sim0.t.device
+    if telescope:
+        return _telescope_loop(sim0, cfg, policy, n_hosts, n_nodes, params,
+                               0, horizon, chunk, stats.acc_init(device),
+                               on_chunk)[0]
 
     def fold(acc, tt, m):
         acc = stats.acc_update(acc, m)
@@ -704,12 +937,13 @@ def stream_chunks(sim0: SimState, cfg: SimConfig, policy: PolicyParams,
 
 def run_sim_chunked(sim0: SimState, cfg: SimConfig, policy: PolicyParams,
                     n_hosts: int, n_nodes: int, horizon: int, chunk: int,
-                    params: RunParams | None = None):
-    """Streamed ``run_sim``: :func:`stream_chunks`, each chunk's
-    accumulator folded into the host's f64/i64 totals with one
-    device-to-host copy (``stats.online_fold``).  Returns (final state,
-    ``OnlineSummary``); the final state is the stacked run's bit for
-    bit."""
+                    params: RunParams | None = None,
+                    telescope: bool = False):
+    """Streamed ``run_sim``: :func:`stream_chunks` (telescoped with
+    ``telescope``), each chunk's accumulator folded into the host's
+    f64/i64 totals with one device-to-host copy (``stats.online_fold``).
+    Returns (final state, ``OnlineSummary``); the final state is the
+    stacked run's bit for bit."""
     device = sim0.t.device
     use_deterministic(device)
     params = cfg.run_params(device) if params is None else params
@@ -720,7 +954,7 @@ def run_sim_chunked(sim0: SimState, cfg: SimConfig, policy: PolicyParams,
         online = stats.online_fold(online, acc)
 
     sim = stream_chunks(sim0, cfg, policy, n_hosts, n_nodes, horizon, chunk,
-                        params, fold)
+                        params, fold, telescope=telescope)
     return sim, online
 
 
@@ -734,7 +968,11 @@ def run_sim(sim0: SimState, cfg: SimConfig, policy: PolicyParams,
     along a trailing time axis); with it the run streams through
     :func:`run_sim_chunked` and returns (final state, ``OnlineSummary``) —
     the same final state bit for bit; ``report.summarize`` takes either.
-    ``plan`` also carries the kernel selectors.  On a CUDA device this
+    ``plan.telescope`` streams the run through the telescoped engine
+    (:func:`simulate_telescoped`; the whole horizon one chunk without
+    ``plan.chunk``) and always returns an ``OnlineSummary``: skipped
+    ticks have no rows to stack.  ``plan`` also carries the kernel
+    selectors.  On a CUDA device this
     turns on ``torch.use_deterministic_algorithms`` for the process, so
     the final state is the same on every run.  ``sim0`` is never written
     to."""
@@ -742,8 +980,9 @@ def run_sim(sim0: SimState, cfg: SimConfig, policy: PolicyParams,
     cfg = plan.apply_to_config(cfg)
     device = sim0.t.device
     params = cfg.run_params(device) if params is None else params
-    if plan.chunk is not None:
+    if plan.chunk is not None or plan.telescope:
         return run_sim_chunked(sim0, cfg, policy, n_hosts, n_nodes, horizon,
-                               plan.chunk, params=params)
+                               plan.chunk or horizon, params=params,
+                               telescope=plan.telescope)
     use_deterministic(device)
     return simulate(sim0, cfg, policy, n_hosts, n_nodes, horizon, params)

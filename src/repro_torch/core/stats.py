@@ -9,8 +9,9 @@ accumulator (``SummaryAcc`` on the device, reset every chunk:
 The tick stays f32/i32; the only 64-bit arithmetic is the numpy fold.
 :func:`soft_num_den` and :func:`soft_objective` reduce the soft-placement
 surrogate sums (``SimConfig.soft_placement``) of any of the three shapes
-to the objective autograd differentiates.  The telescoping fold
-(``acc_update_weighted``) comes with its slice.
+to the objective autograd differentiates.  :func:`acc_update_weighted`
+folds ``dt`` identical ticks at once, for the telescoping engine's
+skipped ticks (``engine.simulate_telescoped``).
 """
 from __future__ import annotations
 
@@ -162,6 +163,60 @@ def acc_update(acc: SummaryAcc, m: TickMetrics) -> SummaryAcc:
         sum_soft_mig=ssm, c_soft_mig=csm,
         sum_soft_mig_n=ssmn, c_soft_mig_n=csmn,
     )
+
+
+def acc_update_weighted(acc: SummaryAcc, m: TickMetrics,
+                        dt: torch.Tensor) -> SummaryAcc:
+    """Fold ``dt`` identical ticks' metrics into the accumulator at once
+    (``dt`` an i32 0-d tensor on the accumulator's device): the
+    telescoping engine's fold of a quiescent interval, whose per-tick
+    metrics are constant.  Each Kahan pair takes ``w * x`` in one step,
+    the Welford pair Chan's merge of ``dt`` equal values (ratio first,
+    ``w / max(n, 1)``), the i32 sums ``dt * v`` (exact under
+    ``max_chunk_ticks``) and the peaks ``maximum``; the f32 operations in
+    the JAX package's order.  Integer fields equal ``dt`` repeated
+    :func:`acc_update` calls, float ones agree to ~1 ulp.  ``dt == 0``
+    keeps every field bit for bit (a Kahan step of 0.0 would still fold
+    the compensation into the sum)."""
+    w = dt.to(F32)
+    su, cu = _kahan(acc.sum_util_var, acc.c_util_var, w * m.util_variance)
+    sm, cm = _kahan(acc.sum_mean_util, acc.c_mean_util, w * m.mean_util)
+    sf, cf = _kahan(acc.sum_flow_rate, acc.c_flow_rate, w * m.mean_flow_rate)
+    ssc, csc = _kahan(acc.sum_soft_comm, acc.c_soft_comm, w * m.soft_comm)
+    ssu, csu = _kahan(acc.sum_soft_util, acc.c_soft_util, w * m.soft_util)
+    ssn, csn = _kahan(acc.sum_soft_n, acc.c_soft_n, w * m.soft_n)
+    ssm, csm = _kahan(acc.sum_soft_mig, acc.c_soft_mig, w * m.soft_mig)
+    ssmn, csmn = _kahan(acc.sum_soft_mig_n, acc.c_soft_mig_n,
+                        w * m.soft_mig_n)
+    n = acc.n_ticks + dt.to(I32)
+    nf = torch.clamp(n.to(F32), min=1.0)
+    delta = m.mean_util - acc.w_mean_util
+    w_mean = acc.w_mean_util + delta * (w / nf)
+    w_m2 = acc.w_m2_util + delta * delta * (acc.n_ticks.to(F32) * w / nf)
+    new = SummaryAcc(
+        n_ticks=n,
+        sum_util_var=su, c_util_var=cu,
+        sum_mean_util=sm, c_mean_util=cm,
+        sum_flow_rate=sf, c_flow_rate=cf,
+        w_mean_util=w_mean, w_m2_util=w_m2,
+        sum_active_flows=(acc.sum_active_flows
+                          + dt * m.active_flows.to(I32)),
+        sum_arrivals=acc.sum_arrivals + dt * m.new_arrivals.to(I32),
+        sum_decisions=acc.sum_decisions + dt * m.decisions.to(I32),
+        sum_migrations=acc.sum_migrations + dt * m.migrations.to(I32),
+        peak_running=torch.maximum(acc.peak_running, m.n_running),
+        peak_deployed=torch.maximum(acc.peak_deployed, m.n_deployed),
+        peak_overloaded=torch.maximum(acc.peak_overloaded, m.n_overloaded),
+        peak_inactive=torch.maximum(acc.peak_inactive, m.n_inactive),
+        sum_soft_comm=ssc, c_soft_comm=csc,
+        sum_soft_util=ssu, c_soft_util=csu,
+        sum_soft_n=ssn, c_soft_n=csn,
+        sum_soft_mig=ssm, c_soft_mig=csm,
+        sum_soft_mig_n=ssmn, c_soft_mig_n=csmn,
+    )
+    keep = dt > 0
+    return SummaryAcc(*(torch.where(keep, upd, old)
+                        for old, upd in zip(acc, new)))
 
 
 def acc_to_numpy(acc: SummaryAcc) -> SummaryAcc:

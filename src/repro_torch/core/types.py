@@ -282,7 +282,6 @@ def check_devices(devices) -> None:
 # ExecPlan fields of the JAX package that later slices of the port bring:
 # field -> (its default, the slice that ports it).
 _LATER_PLAN_FIELDS = {
-    "telescope": (False, "telescoping"),
     "procs": (1, "multi-process fabric"),
     "devices_per_proc": (1, "multi-process fabric"),
 }
@@ -294,10 +293,12 @@ class ExecPlan:
     simulates (``repro.core.types.ExecPlan``'s fields).
 
     Honoured: the kernel selectors, ``chunk`` (stream the horizon with
-    online summaries) and ``slab`` (sweep cells gathered to the host
-    together).  ``overlap`` is accepted and changes nothing: the port
-    copies each slab synchronously.  ``devices`` may be ``None`` or ``1``:
-    the port runs on one device.  ``telescope``, ``procs`` and
+    online summaries), ``slab`` (sweep cells gathered to the host
+    together) and ``telescope`` (the macro-tick engine: quiescent
+    intervals in cheap ticks, online summaries, the whole horizon one
+    chunk without ``chunk``).  ``overlap`` is accepted and changes
+    nothing: the port copies each slab synchronously.  ``devices`` may be
+    ``None`` or ``1``: the port runs on one device.  ``procs`` and
     ``devices_per_proc`` raise ``NotImplementedError`` when set to
     anything but their defaults, naming the slice that brings them."""
 
@@ -309,7 +310,7 @@ class ExecPlan:
     waterfill_kernel: str | None = None  # override SimConfig.waterfill_kernel
     devices: int | None = None           # None or 1
     overlap: bool = True                 # the JAX field; no effect here
-    telescope: bool = False
+    telescope: bool = False             # macro-tick engine
     procs: int = 1
     devices_per_proc: int = 1
 

@@ -9,6 +9,9 @@ the requested device once.
 * ``bursty_workload`` — flash-crowd arrivals around a few burst centers.
 * ``trace_workload`` — Alibaba GPU-trace-shaped generator (lognormal job
   sizes, exponential inter-arrival), same SoA output.
+
+:func:`next_arrival_after` is the arrival component of the telescoping
+engine's event horizon.
 """
 from __future__ import annotations
 
@@ -16,7 +19,19 @@ import numpy as np
 import torch
 
 from repro_torch.core.datacenter import SimConfig
-from repro_torch.core.types import ContainerState, empty_containers
+from repro_torch.core.types import (STATUS_UNBORN, ContainerState,
+                                    empty_containers)
+
+
+def next_arrival_after(containers: ContainerState,
+                       t: torch.Tensor) -> torch.Tensor:
+    """Earliest pending submit time strictly after tick ``t`` (an f32 0-d
+    tensor on the containers' device, +inf when every slot has arrived):
+    padded slots carry ``submit_t = inf`` and arrived ones have left
+    STATUS_UNBORN, so the minimum over the unborn slots is the next
+    ``phase_arrive`` event.  One masked reduction, no read-back."""
+    pending = (containers.status == STATUS_UNBORN) & (containers.submit_t > t)
+    return torch.where(pending, containers.submit_t, float("inf")).min()
 
 
 def _assign_jobs_tasks(rng: np.random.Generator, n_jobs: int, n_tasks: int,

@@ -5,8 +5,8 @@ the :class:`~repro_torch.core.types.ExecPlan` flags identically through
 this one builder, and ``ExecPlan.from_args`` turns the parsed namespace
 back into a plan, so ``--chunk 16 --slab 64 --delay-kernel off`` means the
 same on every entry point.  Flags of fields the port does not have yet
-(``--telescope``, ``--devices`` above 1, ``--procs``) parse and then
-raise in ``ExecPlan``, naming their slice.
+(``--devices`` above 1, ``--procs``) parse and then raise in
+``ExecPlan``, naming their slice.
 
 The kernel-selector flags default to ``None`` (= keep the ``SimConfig``
 selectors) rather than ``'auto'``: an unset flag must not override a
@@ -33,8 +33,11 @@ def add_exec_args(ap: argparse.ArgumentParser, *, chunk: bool = True,
                             "ticks with online summaries (O(state) memory; "
                             "default: stacked per-tick metrics)")
         g.add_argument("--telescope", action="store_true",
-                       help="macro-tick engine (not ported yet: raises, "
-                            "naming the telescoping slice)")
+                       help="macro-tick engine: advance quiescent "
+                            "intervals in cheap ticks up to the next event "
+                            "(final state bit for bit the per-tick run's; "
+                            "online summaries, the whole horizon one chunk "
+                            "without --chunk)")
     if slab:
         g.add_argument("--slab", type=int, default=None,
                        help="with --chunk: gather the grid's results to the "

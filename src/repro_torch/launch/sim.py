@@ -5,12 +5,15 @@
     PYTHONPATH=src python -m repro_torch.launch.sim --hosts 2000 \\
         --containers 6000 --horizon 40 --delay-mode fw --policy netaware
     PYTHONPATH=src python -m repro_torch.launch.sim --device cpu --chunk 16
+    PYTHONPATH=src python -m repro_torch.launch.sim --device cpu \\
+        --horizon 200 --chunk 64 --telescope
     PYTHONPATH=src python -m repro_torch.launch.sim --policy netaware \\
         --weights cross_leaf=0.5,row_coloc=0.3
 
 The flags are those of ``python -m repro.launch.sim``, the execution ones
 from ``launch.execargs`` (``--chunk`` streams the run with online
-summaries; ``--telescope`` raises until its slice is ported), plus
+summaries; ``--telescope`` runs the macro-tick engine, which telescopes
+quiescent intervals and also reports online summaries), plus
 ``--device`` (default ``cuda``; without a CUDA device the run fails unless
 ``--device cpu`` is given).  Every report row records the backend and
 device it ran on and whether the delay and waterfill hot paths went
@@ -80,6 +83,10 @@ def run_one(policy_name: str, cfg: SimConfig, spec, sim0, params, csv=None,
     if csv and plan.chunk is not None:
         raise ValueError("--csv needs the stacked per-tick series; "
                          "drop --chunk to export one")
+    if csv and plan.telescope:
+        raise ValueError("--csv needs the stacked per-tick series; "
+                         "telescoping skips quiescent ticks and keeps only "
+                         "online summaries — drop --telescope to export one")
     cfg = plan.apply_to_config(cfg)
     device = sim0.t.device
     t0 = time.time()

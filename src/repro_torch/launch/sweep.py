@@ -20,6 +20,8 @@ in the policy weights with torch autograd.
         --seeds 2 --horizon 120 --table avg_runtime --out sweep.json
     PYTHONPATH=src python -m repro_torch.launch.sweep --device cpu \\
         --hosts 20 --horizon 10 --chunk 4 --slab 5
+    PYTHONPATH=src python -m repro_torch.launch.sweep --device cpu \\
+        --policies firstfit,netaware --horizon 60 --chunk 16 --telescope
 """
 from __future__ import annotations
 
@@ -270,13 +272,14 @@ def to_host(tensors) -> list:
 
 def make_stream_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,
                    chunk: int, slab: int | None = None, devices=None,
-                   overlap: bool = True):
+                   overlap: bool = True, telescope: bool = False):
     """The streamed sweep: the same [P, S, N] grid as ``make_sweep_fn``,
     each cell run in chunks of ``chunk`` ticks (``engine.stream_chunks``,
-    the accumulator reset every chunk), iterated in SLABS of ``slab``
-    cells.  A slab's finals and per-chunk accumulators come to the host in
-    ONE copy (:func:`to_host`), so the device holds one slab of final
-    states at a time.
+    the accumulator reset every chunk; ``telescope``: the telescoped
+    engine, each cell still its standalone run bit for bit), iterated in
+    SLABS of ``slab`` cells.  A slab's finals and per-chunk accumulators
+    come to the host in ONE copy (:func:`to_host`), so the device holds
+    one slab of final states at a time.
 
     Returns ``fn(sims, pols, rps) -> (finals, summary)``: finals as host
     numpy with [P, S, N] leading axes (bit for bit the stacked sweep's)
@@ -300,7 +303,7 @@ def make_stream_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,
     def run_cell(sim, pol, rp):
         accs = []
         sim = stream_chunks(sim, cfg, pol, n_hosts, n_nodes, horizon, chunk,
-                            rp, accs.append)
+                            rp, accs.append, telescope=telescope)
         return sim, accs
 
     def iter_slabs(sims, pols, rps, slab_starts):
@@ -392,8 +395,10 @@ def run_sweep(policies: Sequence[str] | None = None,
 
     ``plan.chunk`` switches to the streamed sweep (``make_stream_fn``):
     [P, S, N] summaries without [P, S, N, T] metrics, the grid gathered
-    ``plan.slab`` cells at a time.  Cell results are bit-identical either
-    way.  The plan's kernel selectors fold into ``cfg``."""
+    ``plan.slab`` cells at a time.  ``plan.telescope`` streams too, each
+    cell telescoped (the whole horizon one chunk without ``plan.chunk``).
+    Cell results are bit-identical either way.  The plan's kernel
+    selectors fold into ``cfg``."""
     policies = list(policies if policies is not None else list_policies())
     scenarios = list(scenarios if scenarios is not None
                      else default_scenarios())
@@ -405,10 +410,11 @@ def run_sweep(policies: Sequence[str] | None = None,
                                           seeds=seeds, device=device)
     pol = stack_policies(policies, device=device)
     common = dict(policies=policies, scenarios=scenarios, seeds=tuple(seeds))
-    if plan.chunk is not None:
+    if plan.chunk is not None or plan.telescope:
         fn = make_stream_fn(cfg, net_spec.n_hosts, net_spec.n_nodes,
-                            cfg.horizon, chunk=plan.chunk, slab=plan.slab,
-                            devices=plan.devices, overlap=plan.overlap)
+                            cfg.horizon, chunk=plan.chunk or cfg.horizon,
+                            slab=plan.slab, devices=plan.devices,
+                            overlap=plan.overlap, telescope=plan.telescope)
         t0 = time.time()
         finals, summary = fn(sims, pol, rps)
         return SweepResult(finals=finals, metrics=None, summary=summary,
@@ -425,22 +431,24 @@ def run_sweep(policies: Sequence[str] | None = None,
 def run_sim_vmapped(sims: SimState, cfg: SimConfig, policy: PolicyParams,
                     n_hosts: int, n_nodes: int, horizon: int,
                     params: RunParams | None = None,
-                    chunk: int | None = None):
+                    chunk: int | None = None, telescope: bool = False):
     """Seed-batched single-policy run (a leading [N] axis on every SimState
     leaf), the degenerate 1 x 1 x N sweep: (finals [N, ...], metrics
-    [N, T]), or with ``chunk`` (finals [N, ...], [N] ``OnlineSummary``).
-    Each seed is its standalone run."""
+    [N, T]), or with ``chunk`` or ``telescope`` (finals [N, ...], [N]
+    ``OnlineSummary``; telescoped, the whole horizon one chunk without
+    ``chunk``).  Each seed is its standalone run."""
     device = sims.t.device
     params = cfg.run_params(device) if params is None else params
     cells = [tree_map(lambda x: x[i], sims) for i in range(sims.t.shape[0])]
-    if chunk is None:
+    if chunk is None and not telescope:
         use_deterministic(device)
         outs = [simulate(c, cfg, policy, n_hosts, n_nodes, horizon, params)
                 for c in cells]
         return (stack_tree([f for f, _ in outs]),
                 stack_tree([m for _, m in outs]))
-    outs = [run_sim_chunked(c, cfg, policy, n_hosts, n_nodes, horizon, chunk,
-                            params=params) for c in cells]
+    outs = [run_sim_chunked(c, cfg, policy, n_hosts, n_nodes, horizon,
+                            chunk or horizon, params=params,
+                            telescope=telescope) for c in cells]
     return (stack_tree([f for f, _ in outs]),
             OnlineSummary(*(np.stack(xs)
                             for xs in zip(*(o for _, o in outs)))))

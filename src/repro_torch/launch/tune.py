@@ -17,6 +17,8 @@ own slice.
         --samples 4 --horizon 10 --method cem --steps 2 --batch 4
     PYTHONPATH=src python -m repro_torch.launch.tune --device cpu \\
         --method grad --steps 2 --batch 2 --eval-every 1 --horizon 10
+    PYTHONPATH=src python -m repro_torch.launch.tune --device cpu \\
+        --samples 4 --horizon 60 --chunk 16 --telescope
 """
 from __future__ import annotations
 
@@ -149,12 +151,14 @@ def _default_scenarios() -> list[ScenarioSpec]:
 
 
 def _make_fn(cfg: SimConfig, net_spec, plan: ExecPlan):
-    """The grid runner of the search: streamed with ``plan.chunk``, else
-    stacked."""
-    if plan.chunk is not None:
+    """The grid runner of the search: streamed with ``plan.chunk`` or
+    ``plan.telescope`` (telescoped cells, the whole horizon one chunk
+    without ``plan.chunk``), else stacked."""
+    if plan.chunk is not None or plan.telescope:
         return make_stream_fn(cfg, net_spec.n_hosts, net_spec.n_nodes,
-                              cfg.horizon, chunk=plan.chunk, slab=plan.slab,
-                              devices=plan.devices, overlap=plan.overlap)
+                              cfg.horizon, chunk=plan.chunk or cfg.horizon,
+                              slab=plan.slab, devices=plan.devices,
+                              overlap=plan.overlap, telescope=plan.telescope)
     return make_sweep_fn(cfg, net_spec.n_hosts, net_spec.n_nodes,
                          cfg.horizon, devices=plan.devices)
 
@@ -190,8 +194,9 @@ def run_tune(n_samples: int = 16, seeds: Sequence[int] = (0,),
     from ``MAXIMIZE``); a sample that fails the objective anywhere scores
     NaN and ranks last.  ``reps > 1`` re-runs the grid and records the
     fastest repeat as ``steady_s``.  ``plan.chunk`` streams the grid
-    (``launch.sweep.make_stream_fn``); scores match the stacked search to
-    float precision, integer objectives exactly."""
+    (``launch.sweep.make_stream_fn``) and ``plan.telescope`` telescopes
+    its cells; scores match the stacked search to float precision,
+    integer objectives exactly."""
     plan = ExecPlan() if plan is None else plan
     cfg = plan.apply_to_config(cfg or SimConfig())
     device = resolve_device(device)
@@ -250,13 +255,15 @@ def run_tune_grad(steps: int = 24, batch: int = 8, lr: float = 0.1,
 
     ``batch`` candidates (row 0 the untouched ``base`` policy) ride the
     policy axis of ``sweep.make_grad_fn`` over a ``soft_placement=True``
-    twin of ``cfg`` (streamed with ``plan.chunk``); each step is plain
-    gradient descent on the searched dimensions, clipped to ``space``'s
-    bounds, while the softmax temperature anneals ``tau0 -> tau_min`` by
-    ``tau_decay`` a step.  Before the first step, every ``eval_every``
-    steps and after the last, the candidates are re-scored on the hard
-    simulator (``soft_placement=False``, under ``torch.no_grad``) by the
-    true ``objective``, and the best candidate ever scored is kept; the
+    twin of ``cfg`` (streamed with ``plan.chunk``; per tick whatever
+    ``plan.telescope`` says, since a telescoped run skips the soft sums);
+    each step is plain gradient descent on the searched dimensions,
+    clipped to ``space``'s bounds, while the softmax temperature anneals
+    ``tau0 -> tau_min`` by ``tau_decay`` a step.  Before the first step,
+    every ``eval_every`` steps and after the last, the candidates are
+    re-scored on the hard simulator (``soft_placement=False``, under
+    ``torch.no_grad``; telescoped with ``plan.telescope``) by the true
+    ``objective``, and the best candidate ever scored is kept; the
     incumbent is scored first, so the result never ranks below it."""
     plan = ExecPlan() if plan is None else plan
     cfg = plan.apply_to_config(cfg or SimConfig())

@@ -12,7 +12,7 @@ against repro.core's streaming path.
   chunk (final-state ints exactly, floats rtol 1e-5 / atol 1e-4;
   ``OnlineSummary`` ints exactly, floats rtol 1e-5);
 * the chunk guard, ``sim0`` left untouched, ``online_init``'s fields not
-  aliased, and ``launch.sim`` with ``--chunk``.
+  aliased, and ``launch.sim`` with ``--chunk`` and ``--telescope``.
 """
 import contextlib
 import dataclasses
@@ -296,14 +296,15 @@ def sim_main(*argv):
 
 def test_sim_cli_chunk_reports_the_same_keys(tmp_path):
     stacked, chunked = sim_main(), sim_main("--chunk", "16")
-    assert stacked.keys() == chunked.keys()
+    telescoped = sim_main("--telescope")
+    assert stacked.keys() == chunked.keys() == telescoped.keys()
     for k in INT_KEYS:
-        assert stacked[k] == chunked[k], k
+        assert stacked[k] == chunked[k] == telescoped[k], k
     weighted = sim_main("--weights", "cross_leaf=0.5,row_coloc=0.3")
     assert weighted.keys() == stacked.keys()
     with pytest.raises(ValueError, match="--csv"):
         sim_main("--chunk", "16", "--csv", str(tmp_path / "m.csv"))
-    with pytest.raises(NotImplementedError, match="telescoping"):
-        sim_main("--telescope")
+    with pytest.raises(ValueError, match="drop --telescope"):
+        sim_main("--telescope", "--csv", str(tmp_path / "m.csv"))
     with pytest.raises(ValueError, match="name=value"):
         tsim.parse_weights("cross_leaf")
