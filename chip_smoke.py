@@ -72,6 +72,21 @@ Phases, in order, each of which fails the script when it fails:
      (iter_slabs, slab 1) and standalone (run_sim, chunk 16) in turns;
      then run_tune, 4 samples over the baseline scenario at 20 hosts,
      horizon 20, every score finite;
+  5e. the multi-process sweep fabric on the card (launch.dist): (i) phase
+     5b's sweep through run_dist_sweep with 2 worker processes sharing
+     the card (ExecPlan(chunk=16, slab=5, procs=2), the TCP slab handout
+     and the gloo group): finals and summary bit-identical to phase 5b's,
+     the workers' summed launches 40 seg_waterfill and 4 fw_minplus a
+     cell, every slab claimed once, each worker meta naming the card;
+     cells/s beside phase 5b's, each worker's start-up time and slab
+     walls, and the coordinator's stragglers printed; (ii) a resume with
+     devices_per_proc=2 (each worker holds cuda:0 twice, slab 5 pads to
+     6) over 2 policies x the 4 scenarios: the first slab written in
+     this process and its worker meta removed (an orphan), the rest by
+     2 spawned workers, the merge bit-identical to the in-process sweep
+     at that plan (ExecPlan(devices=(cuda:0, cuda:0))); (iii) phase 5b's
+     4-sample tune, streamed (chunk 10) with procs=2: scores equal to
+     phase 5b's. A worker that fails fails the phase;
   5c. soft placement and its gradient (make_grad_fn, torch autograd; the
      kernels forward only): the paper testbed (Table 5 hosts, Fig 3
      fabric, Table 6 workload, 300 containers, horizon 40, 'fw', tau 1)
@@ -143,6 +158,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -194,6 +210,8 @@ from repro_torch.launch.sweep import (make_grad_fn,  # noqa: E402
                                       make_stream_fn, make_sweep_fn,
                                       run_sweep, stack_policies)
 from repro_torch.launch.tune import run_tune, run_tune_grad  # noqa: E402
+from repro_torch.launch.dist import (GridSpec, run_dist_sweep,  # noqa: E402
+                                     run_spec, run_worker_inline)
 from repro_torch.models import transformer  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -1199,14 +1217,23 @@ SWEEP_SCENARIOS = (ScenarioSpec("baseline"),
                                 queue_coef=1.0))
 
 
-def sweep_phase(H=50, C=300, horizon=40, chunk=16, slab=5):
-    """Phase 5b: the streamed policy x scenario sweep, three of its cells
-    re-run standalone and timed against the sweep's runner, then a
-    4-sample weight search."""
+def sweep_point(H=50, C=300, horizon=40):
+    """The sweep point's config and topology sizes."""
     cfg = SimConfig(n_jobs=max(10, C // 3), n_tasks=C, n_containers=C,
                     horizon=horizon, delay_mode="fw")
     n_leaf = max(4, H // 5)
-    grid = dict(n_hosts=H, n_spine=max(2, n_leaf // 4), n_leaf=n_leaf)
+    return cfg, dict(n_hosts=H, n_spine=max(2, n_leaf // 4), n_leaf=n_leaf)
+
+
+# phase 5b's weight search: 4 samples, baseline, 20 hosts, horizon 20
+TUNE_POINT = dict(n_samples=4, seeds=(0,), n_hosts=20, n_spine=2, n_leaf=4)
+
+
+def sweep_phase(H=50, C=300, horizon=40, chunk=16, slab=5):
+    """Phase 5b: the streamed policy x scenario sweep, three of its cells
+    re-run standalone and timed against the sweep's runner, then a
+    4-sample weight search.  Returns the sweep and the search."""
+    cfg, grid = sweep_point(H, C, horizon)
     policies = list_policies()
     specs = list(SWEEP_SCENARIOS)
     B = len(policies) * len(specs)
@@ -1275,10 +1302,8 @@ def sweep_phase(H=50, C=300, horizon=40, chunk=16, slab=5):
             f" against standalone "
             f"{', '.join(f'{r:.3f}' for o, r in turns if o)}")
     t0 = time.time()
-    tres = run_tune(n_samples=4, seeds=(0,),
-                    scenarios=[ScenarioSpec("baseline")],
-                    cfg=SimConfig(horizon=20), n_hosts=20, n_spine=2,
-                    n_leaf=4, device=DEV)
+    tres = run_tune(scenarios=[ScenarioSpec("baseline")],
+                    cfg=SimConfig(horizon=20), device=DEV, **TUNE_POINT)
     torch.cuda.synchronize()
     if tres.scores.shape != (4,) or not np.isfinite(tres.scores).all():
         raise AssertionError(f"tune scores {tres.scores}")
@@ -1286,7 +1311,117 @@ def sweep_phase(H=50, C=300, horizon=40, chunk=16, slab=5):
         f"{time.time() - t0:.3f} s, {tres.objective} "
         f"{', '.join(f'{v:.4f}' for v in tres.scores)}, best sample "
         f"{tres.best}")
-    return counts
+    return res, tres
+
+
+# ---------------------------------------------------------------------------
+# Phase 5e: the multi-process sweep fabric on the card
+# ---------------------------------------------------------------------------
+def check_same_sweep(got_finals, got_summary, want_finals, want_summary,
+                     what):
+    """Finals and summary bit-identical (host numpy leaves both)."""
+    bad = [k for k, v in _leaves(got_finals).items()
+           if not np.array_equal(np.asarray(v).view(np.uint8),
+                                 np.asarray(_leaves(want_finals)[k])
+                                 .view(np.uint8))]
+    bad += [f for f, a, b in zip(OnlineSummary._fields, got_summary,
+                                 want_summary)
+            if a.dtype != b.dtype or not np.array_equal(a.view(np.uint8),
+                                                        b.view(np.uint8))]
+    if bad:
+        raise AssertionError(f"{what}: differs in {bad}")
+
+
+def check_workers(metas, cells, horizon, n_fw, starts, what):
+    """The workers' summed launches, their slabs (each claimed once) and
+    their devices (the card, the kernels on)."""
+    summed = {k: sum(m["launches"][k] for m in metas) for k in LAUNCHES}
+    check_launches(summed, cells, horizon, n_fw, what)
+    slabs = sorted(s for m in metas for s in m["slabs"])
+    if slabs != starts:
+        raise AssertionError(f"{what}: workers claimed {slabs}, the plan "
+                             f"has {starts}")
+    card = torch.cuda.get_device_name(0)
+    for m in metas:
+        if (m["backend"] != "torch-cuda" or set(m["device_names"]) != {card}
+                or not all(m["kernels_active"].values())):
+            raise AssertionError(f"{what}: worker meta {m}")
+    return summed
+
+
+def fabric_phase(sweep, tune, H=50, C=300, horizon=40, chunk=16, slab=5):
+    """Phase 5e: (i) phase 5b's sweep through 2 worker processes on the
+    card; (ii) a resume with devices_per_proc=2; (iii) phase 5b's tune
+    with procs=2."""
+    cfg, grid = sweep_point(H, C, horizon)
+    policies, specs = list_policies(), list(SWEEP_SCENARIOS)
+    B = len(policies) * len(specs)
+    n_fw = len(range(0, horizon, cfg.delay_update_interval))
+    with tempfile.TemporaryDirectory(prefix="fabric_") as out:
+        t0 = time.time()
+        res = run_dist_sweep(policies=policies, scenarios=specs, seeds=(0,),
+                             cfg=cfg, plan=ExecPlan(chunk=chunk, slab=slab,
+                                                    procs=2),
+                             out_dir=out, device=DEV, timeout_s=300.0,
+                             **grid)
+        wall = time.time() - t0
+        with open(os.path.join(out, "coordinator.json")) as f:
+            coord = json.load(f)
+    check_same_sweep(res.finals, res.summary, sweep.finals, sweep.summary,
+                     "fabric sweep against phase 5b")
+    summed = check_workers(res.worker_meta, B, horizon, n_fw,
+                           list(range(0, B, slab)), "fabric sweep")
+    log(f"fabric sweep, 2 workers on one card, {B} cells (slab {slab}, "
+        f"chunk {chunk}): bit-identical to phase 5b; {res.wall_s} s spawn "
+        f"to merge ({wall:.3f} s with the launcher's build), "
+        f"{B / res.wall_s:.3f} cells/s against phase 5b's "
+        f"{B / sweep.wall_s:.3f} in-process ({sweep.wall_s} s); workers' "
+        f"launches {summed}; coordinator: stragglers {coord['stragglers']}, "
+        f"median slab {coord['median_slab_s']} s, assignments "
+        f"{coord['assignments']}")
+    for m in res.worker_meta:
+        cells = sum(min(slab, B - s) for s in m["slabs"])
+        log(f"  worker {m['process_index']} on {m['devices']}: start-up "
+            f"{m['startup_s']} s, slabs {m['slabs']}, walls "
+            f"{m['slab_walls_s']} s, loop {m['wall_s']} s, {cells} cells, "
+            f"{cells / max(sum(m['slab_walls_s']), 1e-9):.3f} cells/s over "
+            f"its slab walls, launches {m['launches']}")
+
+    # (ii) resume with two devices a worker: slab 5 pads to 6
+    plan = ExecPlan(chunk=chunk, slab=slab, procs=2, devices_per_proc=2)
+    sub = policies[:2]
+    Bs = len(sub) * len(specs)
+    spec = GridSpec.build(cfg=cfg, scenarios=specs, seeds=(0,), policies=sub,
+                          chunk=chunk, slab=slab, overlap=True,
+                          devices_per_proc=2, **grid)
+    ref = run_sweep(policies=sub, scenarios=specs, seeds=(0,), cfg=cfg,
+                    plan=ExecPlan(chunk=chunk, slab=slab,
+                                  devices=(DEV, DEV)), device=DEV, **grid)
+    with tempfile.TemporaryDirectory(prefix="fabric_resume_") as out:
+        first = run_worker_inline(spec, out, 0, [0], device=DEV)
+        os.remove(os.path.join(out, "worker_00.json"))
+        run = run_spec(spec, num_procs=plan.procs, out_dir=out, device=DEV,
+                       timeout_s=300.0)
+    check_same_sweep(run.finals, run.summary, ref.finals, ref.summary,
+                     "fabric resume against the in-process sweep")
+    check_workers(run.metas + [first], Bs, horizon, n_fw, [0, 6],
+                  "fabric resume")
+    log(f"fabric resume, devices_per_proc 2 ({first['devices']}), {Bs} "
+        f"cells, slab {slab} padded to 6: slab 0 in this process "
+        f"(orphaned), {[m['slabs'] for m in run.metas]} by the workers; "
+        f"bit-identical to the in-process sweep on (cuda:0, cuda:0); "
+        f"{run.wall_s} s spawn to merge")
+
+    # (iii) the weight search through the fabric
+    t0 = time.time()
+    dres = run_tune(scenarios=[ScenarioSpec("baseline")],
+                    cfg=SimConfig(horizon=20), device=DEV,
+                    plan=ExecPlan(chunk=10, procs=2), **TUNE_POINT)
+    if not np.array_equal(dres.scores, tune.scores):
+        raise AssertionError(f"fabric tune scores {dres.scores} against "
+                             f"phase 5b's {tune.scores}")
+    log(f"fabric tune, 4 samples over 2 workers (chunk 10): "
+        f"{time.time() - t0:.3f} s, scores equal to phase 5b's")
 
 
 # ---------------------------------------------------------------------------
@@ -1668,7 +1803,9 @@ def main():
     real = real_size_run()
     sim_counts = real["counts"]
     streaming_run(real)
-    sweep_phase()
+    sweep, tune = sweep_phase()
+    fabric_phase(sweep, tune)
+    del sweep
     autodiff_phase(real)
     telescope_phase(real)
     del real

@@ -270,23 +270,6 @@ class OnlineSummary(NamedTuple):
     sum_soft_mig_n: np.ndarray
 
 
-def check_devices(devices) -> None:
-    """The port runs on one device: ``devices`` may be ``None`` or ``1``."""
-    if devices not in (None, 1):
-        raise NotImplementedError(
-            f"devices={devices!r} is not ported yet: the port runs on one "
-            f"device; several come with the multi-process fabric slice of "
-            f"repro_torch")
-
-
-# ExecPlan fields of the JAX package that later slices of the port bring:
-# field -> (its default, the slice that ports it).
-_LATER_PLAN_FIELDS = {
-    "procs": (1, "multi-process fabric"),
-    "devices_per_proc": (1, "multi-process fabric"),
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class ExecPlan:
     """Execution knobs of a run — how it is executed, never what it
@@ -294,13 +277,13 @@ class ExecPlan:
 
     Honoured: the kernel selectors, ``chunk`` (stream the horizon with
     online summaries), ``slab`` (sweep cells gathered to the host
-    together) and ``telescope`` (the macro-tick engine: quiescent
-    intervals in cheap ticks, online summaries, the whole horizon one
-    chunk without ``chunk``).  ``overlap`` is accepted and changes
-    nothing: the port copies each slab synchronously.  ``devices`` may be
-    ``None`` or ``1``: the port runs on one device.  ``procs`` and
-    ``devices_per_proc`` raise ``NotImplementedError`` when set to
-    anything but their defaults, naming the slice that brings them."""
+    together), ``telescope`` (the macro-tick engine: quiescent intervals
+    in cheap ticks, online summaries, the whole horizon one chunk without
+    ``chunk``), ``devices`` (the sweep's cells cut over several devices,
+    :func:`resolve_devices`), and ``procs`` / ``devices_per_proc`` (the
+    multi-process sweep fabric, ``launch.dist``; the in-process entry
+    points take them as the JAX package does).  ``overlap`` is accepted
+    and changes nothing: the port copies each slab synchronously."""
 
     chunk: int | None = None             # ticks per streamed chunk; None =
     #                                      stacked per-tick metrics
@@ -308,13 +291,16 @@ class ExecPlan:
     #                                      None = the whole grid
     delay_kernel: str | None = None      # override SimConfig.delay_kernel
     waterfill_kernel: str | None = None  # override SimConfig.waterfill_kernel
-    devices: int | None = None           # None or 1
+    devices: tuple | int | None = None   # sweep devices (resolve_devices)
     overlap: bool = True                 # the JAX field; no effect here
     telescope: bool = False             # macro-tick engine
     procs: int = 1
     devices_per_proc: int = 1
 
     def __post_init__(self):
+        if self.devices is not None \
+                and not isinstance(self.devices, (tuple, int)):
+            object.__setattr__(self, "devices", tuple(self.devices))
         for name in ("chunk", "slab"):
             v = getattr(self, name)
             if v is not None and v <= 0:
@@ -323,13 +309,6 @@ class ExecPlan:
         if self.procs < 1 or self.devices_per_proc < 1:
             raise ValueError("ExecPlan.procs and devices_per_proc must be "
                              ">= 1")
-        check_devices(self.devices)
-        for name, (default, slice_name) in _LATER_PLAN_FIELDS.items():
-            value = getattr(self, name)
-            if value != default:
-                raise NotImplementedError(
-                    f"ExecPlan.{name}={value!r} is not ported yet: it comes "
-                    f"with the {slice_name} slice of repro_torch")
         for name in ("delay_kernel", "waterfill_kernel"):
             v = getattr(self, name)
             if v is not None and v not in KERNEL_FLAGS:
@@ -348,8 +327,7 @@ class ExecPlan:
     def from_args(cls, args) -> "ExecPlan":
         """Build a plan from an ``argparse`` namespace of
         ``launch.execargs.add_exec_args``; missing attributes take the
-        field defaults, and later-slice flags raise as the constructor
-        does."""
+        field defaults."""
         defaults = cls()
 
         def get(name, fallback):
@@ -380,6 +358,42 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def resolve_devices(devices):
+    """The devices a sweep cuts its cells over, or ``None`` for the run's
+    one device (the grid's):
+
+    * ``None`` or ``1`` — ``None``;
+    * an int ``k`` — ``cuda:0 .. cuda:k-1``; raises when fewer CUDA
+      devices are visible (the JAX package's ``grid_mesh`` quietly takes
+      the devices there are; the port never runs on fewer than asked);
+    * a sequence of devices — those, in order.  It may repeat a device
+      (``("cpu", "cpu")``, or ``cuda:0`` twice on a one-card machine):
+      the cells are cut as over distinct devices and run where named.
+    """
+    if devices is None:
+        return None
+    if isinstance(devices, int):
+        if devices < 1:
+            raise ValueError(f"devices must be >= 1, got {devices}")
+        if devices == 1:
+            return None
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if devices > n:
+            raise RuntimeError(
+                f"devices={devices} asks for {devices} CUDA devices and "
+                f"{n} are visible; pass fewer, or a sequence of devices")
+        return tuple(torch.device("cuda", i) for i in range(devices))
+    devs = tuple(torch.device(d) for d in devices)
+    if not devs:
+        raise ValueError("devices must name at least one device")
+    for d in devs:
+        if d.type == "cuda":
+            resolve_device(d)
+            if (d.index or 0) >= torch.cuda.device_count():
+                raise RuntimeError(f"{d} is not a visible CUDA device")
+    return devs
 
 
 def device_name(device) -> str:

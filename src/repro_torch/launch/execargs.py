@@ -4,9 +4,10 @@ Every launcher (``repro_torch.launch.sim`` / ``sweep`` / ``tune``) spells
 the :class:`~repro_torch.core.types.ExecPlan` flags identically through
 this one builder, and ``ExecPlan.from_args`` turns the parsed namespace
 back into a plan, so ``--chunk 16 --slab 64 --delay-kernel off`` means the
-same on every entry point.  Flags of fields the port does not have yet
-(``--devices`` above 1, ``--procs``) parse and then raise in
-``ExecPlan``, naming their slice.
+same on every entry point.  ``--devices`` cuts a sweep's cells over
+that many CUDA devices; ``--procs`` / ``--devices-per-proc`` run the
+weight search through the multi-process fabric (``launch.dist``, whose
+own launcher spells them the same).
 
 The kernel-selector flags default to ``None`` (= keep the ``SimConfig``
 selectors) rather than ``'auto'``: an unset flag must not override a
@@ -45,9 +46,9 @@ def add_exec_args(ap: argparse.ArgumentParser, *, chunk: bool = True,
                             "whole grid at once)")
     if devices:
         g.add_argument("--devices", type=int, default=None,
-                       help="devices to run the grid on (the port runs on "
-                            "one; more raises, naming the multi-process "
-                            "fabric slice)")
+                       help="CUDA devices to cut the grid's cells over "
+                            "(cuda:0 .. cuda:k-1; raises when fewer are "
+                            "visible; default: the run's one device)")
     if overlap:
         g.add_argument("--no-overlap", action="store_true",
                        help="the JAX package's flag, taken for its "
@@ -66,8 +67,8 @@ def add_exec_args(ap: argparse.ArgumentParser, *, chunk: bool = True,
                             "allocation (same semantics)")
     if dist:
         g.add_argument("--procs", type=int, default=None,
-                       help="worker processes (not ported yet: more than 1 "
-                            "raises, naming the multi-process fabric slice)")
+                       help="worker processes of the multi-process sweep "
+                            "fabric (needs --chunk; default: in-process)")
         g.add_argument("--devices-per-proc", type=int, default=None,
-                       help="devices each worker process claims (same)")
+                       help="devices each dist worker claims")
     return g

@@ -1,4 +1,5 @@
-"""Sweep driver: the policy x scenario x seed grid on one device.
+"""Sweep driver: the policy x scenario x seed grid on one device or cut
+over several.
 
 Counterpart of ``repro.launch.sweep``.  The grid is one flattened axis of
 P*S*N cells in the JAX package's order (cell ``b`` is policy
@@ -12,6 +13,13 @@ its standalone ``run_sim`` bit for bit, by construction:
     policies [P] --+
     scenarios [S] --+--> flatten [P*S*N] --> one cell at a time --> [P, S, N]
     seeds     [N] --+
+
+With ``devices`` (:func:`~repro_torch.core.types.resolve_devices`) the
+flattened axis is padded to a multiple of the device count and cut into
+contiguous shards, as the JAX package's ``grid`` mesh axis cuts it; shard
+``j``'s cells run on ``devices[j]``.  Pad cells are not run (the JAX
+package computes them only to drop them).  The shards run one after
+another: they do not overlap in time.
 
 ``make_grad_fn`` differentiates the same grid's soft-placement surrogate
 in the policy weights with torch autograd.
@@ -46,8 +54,8 @@ from repro_torch.core.scenario import (ScenarioSpec, build_scenarios,
 from repro_torch.core.scheduling import validate_weights
 from repro_torch.core.types import (ExecPlan, OnlineSummary, PolicyParams,
                                     RunParams, SimState, SummaryAcc,
-                                    TickMetrics, check_devices, device_name,
-                                    resolve_device, tree_map)
+                                    TickMetrics, device_name, resolve_device,
+                                    resolve_devices, tree_map)
 from repro_torch.kernels import resolve_kernel
 from repro_torch.launch.execargs import add_exec_args
 
@@ -127,6 +135,33 @@ def _cell(sims: SimState, pols: PolicyParams, rps: RunParams, b: int,
             tree_map(lambda x: x[s], rps))
 
 
+def _shards(s0: int, n_cells: int, real: int, k: int) -> list:
+    """The ``k`` contiguous shards of the ``n_cells``-cell block starting
+    at cell ``s0``, padded to a multiple of ``k``, each cut to the block's
+    first ``real`` cells: pad cells are dropped, so a trailing shard may
+    be short or empty."""
+    per = -(-n_cells // k)
+    return [range(s0 + j * per, s0 + min((j + 1) * per, real))
+            for j in range(k)]
+
+
+def _on(device, tree):
+    """``tree``'s tensors on ``device`` (the same tensors where they
+    already are); a plain tuple is a tuple of trees."""
+    if type(tree) is tuple:
+        return tuple(_on(device, t) for t in tree)
+    return tree_map(lambda x: x.to(device), tree)
+
+
+def _targets(devs, sims) -> tuple:
+    """The devices the cells run on: ``devs``, or the grid's own device;
+    each runs in deterministic mode."""
+    targets = devs or (sims.t.device,)
+    for d in targets:
+        use_deterministic(d)
+    return targets
+
+
 def _grad_of(value: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """d value / d w, zeros where the value does not depend on ``w`` (a
     cell that made no soft decision)."""
@@ -153,17 +188,21 @@ def make_grad_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,
     single-cell engine, each on a leaf copy of its policy's weights.
 
     ``chunk=None`` runs each cell's whole horizon and differentiates its
-    objective.  A ``chunk`` streams it: the state's leaves are detached at
-    every chunk boundary, each chunk's numerator (from a fresh
-    ``SummaryAcc``) is differentiated and its gradient added to an f64
-    host total, the chunk folded into the ``OnlineSummary``, and at the
-    end the totals are divided by the final count (piecewise constant in
-    the weights), so one chunk's graph is freed before the next runs.
+    objective, the cells cut over ``devices`` as ``make_sweep_fn`` cuts
+    them (values and gradients gathered to the first).  A ``chunk``
+    streams it: the state's leaves are detached at every chunk boundary,
+    each chunk's numerator (from a fresh ``SummaryAcc``) is differentiated
+    and its gradient added to an f64 host total, the chunk folded into
+    the ``OnlineSummary``, and at the end the totals are divided by the
+    final count (piecewise constant in the weights), so one chunk's graph
+    is freed before the next runs.
     Values equal the stacked ones at any chunk size; gradients too, except
     the ``util``/``cross_leaf`` components when a boundary falls while
     decisions are still being made (truncated back-propagation through
-    ``comm_cost``, as in the JAX package).  The CUDA kernels run forward
-    only: none of their inputs depends on the weights.
+    ``comm_cost``, as in the JAX package).  The chunked gradient runs
+    unsharded on the grid's device (``fn.n_devices == 1``), as in the JAX
+    package.  The CUDA kernels run forward only: none of their inputs
+    depends on the weights.
     """
     if not cfg.soft_placement:
         raise ValueError(
@@ -173,9 +212,11 @@ def make_grad_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,
     if objective not in stats.SOFT_OBJECTIVES:
         raise KeyError(f"unknown soft objective {objective!r}; known: "
                        f"{list(stats.SOFT_OBJECTIVES)}")
-    check_devices(devices)
+    devs = resolve_devices(devices)
     if chunk is not None:
         stats.check_chunk(chunk, cfg.n_containers)
+        devs = None
+    n_dev = 1 if devs is None else len(devs)
 
     def stacked_cell(sim, w, rp):
         _, metrics = simulate(sim, cfg, PolicyParams(weights=w), n_hosts,
@@ -203,17 +244,19 @@ def make_grad_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,
 
     def fn(sims, pols, rps):
         _check_topology_uniform(sims)
-        device = sims.t.device
-        use_deterministic(device)
+        targets = _targets(devs, sims)
+        device = targets[0]
         P, S, N, B = _grid_shape(sims, pols)
         vals, grads = [], []
         with torch.enable_grad():
-            for b in range(B):
-                sim, pol, rp = _cell(sims, pols, rps, b, S, N)
-                w = pol.weights.detach().clone().requires_grad_()
-                v, g = cell_fn(sim, w, rp)
-                vals.append(v.to(device, torch.float64))
-                grads.append(g.to(device, torch.float64))
+            for dev, cells in zip(targets,
+                                  _shards(0, B, B, n_dev)):
+                for b in cells:
+                    sim, pol, rp = _on(dev, _cell(sims, pols, rps, b, S, N))
+                    w = pol.weights.detach().clone().requires_grad_()
+                    v, g = cell_fn(sim, w, rp)
+                    vals.append(v.to(device, torch.float64))
+                    grads.append(g.to(device, torch.float64))
         # the mean over a policy's cells, in f64 (the chunked path's
         # totals are f64 already)
         mean = lambda xs: (torch.stack(xs).reshape((P, S * N)
@@ -221,7 +264,7 @@ def make_grad_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,
                            .mean(1).to(torch.float32))
         return mean(vals), mean(grads)
 
-    fn.n_devices = 1
+    fn.n_devices = n_dev
     return fn
 
 
@@ -231,24 +274,29 @@ def make_sweep_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,
     (finals, metrics)`` with [P, S, N] leading axes (tensors on the grid's
     device; metrics [P, S, N, T]).  Each cell is ``engine.simulate``, the
     function standalone ``run_sim`` runs, so each is that run bit for
-    bit."""
-    check_devices(devices)
+    bit.  With ``devices`` the cells are cut over them (module docstring)
+    and their results gathered to the first."""
+    devs = resolve_devices(devices)
+    n_dev = 1 if devs is None else len(devs)
 
     def fn(sims, pols, rps):
         _check_topology_uniform(sims)
-        use_deterministic(sims.t.device)
+        targets = _targets(devs, sims)
         P, S, N, B = _grid_shape(sims, pols)
         finals, metrics = [], []
-        for b in range(B):
-            sim, pol, rp = _cell(sims, pols, rps, b, S, N)
-            f, m = simulate(sim, cfg, pol, n_hosts, n_nodes, horizon, rp)
-            finals.append(f)
-            metrics.append(m)
+        for dev, cells in zip(targets,
+                              _shards(0, B, B, n_dev)):
+            for b in cells:
+                sim, pol, rp = _on(dev, _cell(sims, pols, rps, b, S, N))
+                f, m = simulate(sim, cfg, pol, n_hosts, n_nodes, horizon,
+                                rp)
+                finals.append(_on(targets[0], f))
+                metrics.append(_on(targets[0], m))
         grid = lambda x: x.reshape((P, S, N) + tuple(x.shape[1:]))
         return (tree_map(grid, stack_tree(finals)),
                 tree_map(grid, stack_tree(metrics)))
 
-    fn.n_devices = 1
+    fn.n_devices = n_dev
     return fn
 
 
@@ -292,13 +340,18 @@ def make_stream_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,
     ``fn.iter_slabs(sims, pols, rps, slab_starts)`` is the runner itself,
     a generator of ``(s0, finals_leaves, slab_summary)`` per start offset:
     each start owns cells ``s0 .. min(s0 + Bs, B) - 1``, so the last slab
-    may be short; ``fn.slab_cells(B)`` is ``Bs``.
+    may be short; ``fn.slab_cells(B)`` is ``Bs``, ``min(slab, B)`` padded
+    to a multiple of the device count, so the slab starts are the JAX
+    package's.  With ``devices`` each slab is cut over them (module
+    docstring) and comes to the host in one copy a shard.
     """
     stats.check_chunk(chunk, cfg.n_containers)
-    check_devices(devices)
+    devs = resolve_devices(devices)
+    n_dev = 1 if devs is None else len(devs)
 
     def slab_cells(B: int) -> int:
-        return B if slab is None else min(slab, B)
+        Bs = B if slab is None else min(slab, B)
+        return Bs + (-Bs) % n_dev
 
     def run_cell(sim, pol, rp):
         accs = []
@@ -308,15 +361,16 @@ def make_stream_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,
 
     def iter_slabs(sims, pols, rps, slab_starts):
         _check_topology_uniform(sims)
-        use_deterministic(sims.t.device)
+        targets = _targets(devs, sims)
         P, S, N, B = _grid_shape(sims, pols)
         Bs = slab_cells(B)
         statics = _static_indices(sims)
         n_fields = len(SummaryAcc._fields)
-        for s0 in slab_starts:
+
+        def run_shard(dev, cells):
             finals, accs = [], []
-            for b in range(s0, min(s0 + Bs, B)):
-                f, a = run_cell(*_cell(sims, pols, rps, b, S, N))
+            for b in cells:
+                f, a = run_cell(*_on(dev, _cell(sims, pols, rps, b, S, N)))
                 finals.append([x for _, x in tree_leaves_with_path(f)])
                 accs.append(a)
             leaves = [finals[0][i] if i in statics
@@ -329,7 +383,19 @@ def make_stream_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,
             for c0 in range(len(leaves), len(host), n_fields):
                 slab_sum = stats.online_fold(
                     slab_sum, SummaryAcc(*host[c0:c0 + n_fields]))
-            yield s0, host[:len(leaves)], slab_sum
+            return host[:len(leaves)], slab_sum
+
+        for s0 in slab_starts:
+            parts = [run_shard(dev, cells) for dev, cells in zip(
+                targets, _shards(s0, Bs, min(Bs, B - s0), n_dev)) if cells]
+            if len(parts) == 1:
+                yield (s0,) + parts[0]
+                continue
+            leaves = [parts[0][0][i] if i in statics
+                      else np.concatenate([h[i] for h, _ in parts])
+                      for i in range(len(parts[0][0]))]
+            yield s0, leaves, OnlineSummary(*(
+                np.concatenate(xs) for xs in zip(*(s for _, s in parts))))
 
     def fn(sims, pols, rps):
         P, S, N, B = _grid_shape(sims, pols)
@@ -346,7 +412,7 @@ def make_stream_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,
                                   for xs in zip(*(s for _, s in slabs))))
         return tree_unflatten(sims, leaves), summary
 
-    fn.n_devices = 1
+    fn.n_devices = n_dev
     fn.iter_slabs = iter_slabs
     fn.slab_cells = slab_cells
     return fn
@@ -356,7 +422,10 @@ def make_stream_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,
 class SweepResult:
     """A sweep's grid and results.  ``compile_cache_misses`` is 0 in the
     port: nothing is compiled (the JAX sweep counts its jit cache misses
-    here).  ``n_devices`` is 1."""
+    here).  ``n_devices`` counts the devices the grid was cut over (a
+    multi-process sweep: workers x devices each); ``worker_meta`` holds
+    each worker's slabs, walls, devices and kernel launches
+    (``launch.dist``)."""
 
     policies: list[str]
     scenarios: list[ScenarioSpec]
@@ -367,6 +436,7 @@ class SweepResult:
     compile_cache_misses: int = 0
     n_devices: int = 1
     summary: OnlineSummary | None = None  # [P, S, N] streamed fold
+    worker_meta: list | None = None  # per-worker meta (launch.dist)
     _rows: list | None = dataclasses.field(default=None, repr=False)
 
     def summaries(self) -> list[dict[str, Any]]:
@@ -397,8 +467,11 @@ def run_sweep(policies: Sequence[str] | None = None,
     [P, S, N] summaries without [P, S, N, T] metrics, the grid gathered
     ``plan.slab`` cells at a time.  ``plan.telescope`` streams too, each
     cell telescoped (the whole horizon one chunk without ``plan.chunk``).
-    Cell results are bit-identical either way.  The plan's kernel
-    selectors fold into ``cfg``."""
+    Cell results are bit-identical either way.  ``plan.devices`` cuts the
+    cells over several devices (module docstring); ``plan.procs`` is the
+    multi-process fabric's (``launch.dist.run_dist_sweep``), as in the
+    JAX package this in-process sweep does not read it.  The plan's
+    kernel selectors fold into ``cfg``."""
     policies = list(policies if policies is not None else list_policies())
     scenarios = list(scenarios if scenarios is not None
                      else default_scenarios())
@@ -418,14 +491,16 @@ def run_sweep(policies: Sequence[str] | None = None,
         t0 = time.time()
         finals, summary = fn(sims, pol, rps)
         return SweepResult(finals=finals, metrics=None, summary=summary,
-                           wall_s=round(time.time() - t0, 2), **common)
+                           wall_s=round(time.time() - t0, 2),
+                           n_devices=fn.n_devices, **common)
     fn = make_sweep_fn(cfg, net_spec.n_hosts, net_spec.n_nodes, cfg.horizon,
                        devices=plan.devices)
     t0 = time.time()
     finals, metrics = fn(sims, pol, rps)
     _synchronize(device)
     return SweepResult(finals=finals, metrics=metrics,
-                       wall_s=round(time.time() - t0, 2), **common)
+                       wall_s=round(time.time() - t0, 2),
+                       n_devices=fn.n_devices, **common)
 
 
 def run_sim_vmapped(sims: SimState, cfg: SimConfig, policy: PolicyParams,

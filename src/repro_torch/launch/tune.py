@@ -8,8 +8,9 @@ samples by a summary objective (``report.tune_table``).  Random and
 per-dimension grid search (:func:`run_tune`), gradient descent on the
 soft-placement surrogate with hard-simulator re-scoring
 (:func:`run_tune_grad`) and the cross-entropy method on the hard
-simulator (:func:`run_tune_cem`); the multi-process fabric comes with its
-own slice.
+simulator (:func:`run_tune_cem`).  With ``--procs`` the random and grid
+searches run their population through the multi-process sweep fabric
+(``launch.dist``).
 
     PYTHONPATH=src python -m repro_torch.launch.tune --samples 16 --seeds 2 \\
         --objective avg_runtime --out tune.json
@@ -19,6 +20,8 @@ own slice.
         --method grad --steps 2 --batch 2 --eval-every 1 --horizon 10
     PYTHONPATH=src python -m repro_torch.launch.tune --device cpu \\
         --samples 4 --horizon 60 --chunk 16 --telescope
+    PYTHONPATH=src python -m repro_torch.launch.tune --device cpu \\
+        --samples 4 --horizon 10 --chunk 4 --procs 2
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from repro_torch.core.scheduling import validate_weights, weight_index
 from repro_torch.core.types import (NUM_POLICY_WEIGHTS, WEIGHT_NAMES,
                                     ExecPlan, PolicyParams, device_name,
                                     resolve_device)
+from repro_torch.launch.dist import make_dist_fn
 from repro_torch.launch.execargs import add_exec_args
 from repro_torch.launch.sweep import (_synchronize, make_grad_fn,
                                       make_stream_fn, make_sweep_fn)
@@ -196,7 +200,14 @@ def run_tune(n_samples: int = 16, seeds: Sequence[int] = (0,),
     fastest repeat as ``steady_s``.  ``plan.chunk`` streams the grid
     (``launch.sweep.make_stream_fn``) and ``plan.telescope`` telescopes
     its cells; scores match the stacked search to float precision,
-    integer objectives exactly."""
+    integer objectives exactly.
+
+    A ``plan.procs > 1`` runs the streamed search MULTI-PROCESS through
+    the sweep fabric (``launch.dist.make_dist_fn``): the weights ride the
+    policy axis of the slab handout, ``plan.procs`` workers of
+    ``plan.devices_per_proc`` devices each on ``device``'s type.  It
+    requires ``plan.chunk`` and refuses ``plan.telescope``; scores are
+    bit-identical to the in-process streamed search."""
     plan = ExecPlan() if plan is None else plan
     cfg = plan.apply_to_config(cfg or SimConfig())
     device = resolve_device(device)
@@ -208,7 +219,20 @@ def run_tune(n_samples: int = 16, seeds: Sequence[int] = (0,),
     net_spec, sims, rps = build_scenarios(scenarios, cfg, n_hosts=n_hosts,
                                           n_spine=n_spine, n_leaf=n_leaf,
                                           seeds=seeds, device=device)
-    fn = _make_fn(cfg, net_spec, plan)
+    if plan.procs > 1:
+        if plan.chunk is None:
+            raise ValueError("procs > 1 requires chunk (the distributed "
+                             "fabric streams slabs; there is no stacked "
+                             "multi-process path)")
+        if plan.telescope:
+            raise ValueError("telescope is not threaded through the "
+                             "multi-process fabric yet — drop procs or "
+                             "telescope")
+        fn = make_dist_fn(cfg, scenarios, seeds, weights=W, n_hosts=n_hosts,
+                          n_spine=n_spine, n_leaf=n_leaf, plan=plan,
+                          device=device)
+    else:
+        fn = _make_fn(cfg, net_spec, plan)
     times = []
     for _ in range(max(reps, 1)):
         t0 = time.time()
@@ -264,9 +288,13 @@ def run_tune_grad(steps: int = 24, batch: int = 8, lr: float = 0.1,
     re-scored on the hard simulator (``soft_placement=False``, under
     ``torch.no_grad``; telescoped with ``plan.telescope``) by the true
     ``objective``, and the best candidate ever scored is kept; the
-    incumbent is scored first, so the result never ranks below it."""
+    incumbent is scored first, so the result never ranks below it.
+    ``plan.procs > 1`` raises, as in the JAX package."""
     plan = ExecPlan() if plan is None else plan
     cfg = plan.apply_to_config(cfg or SimConfig())
+    if plan.procs > 1:
+        raise ValueError("grad mode is single-process (the oracle rides "
+                         "plan.chunk/devices; procs is random/grid only)")
     device = resolve_device(device)
     scenarios = list(scenarios if scenarios is not None
                      else _default_scenarios())
@@ -354,7 +382,8 @@ def run_tune_cem(steps: int = 6, batch: int = 16, elite_frac: float = 0.25,
     a diagonal Gaussian to the elite fraction, ``steps`` times, with the
     base policy re-injected as row 0 of every population and the
     best-ever candidate tracked.  The RNG sequence is the JAX package's,
-    so equal scores give equal populations."""
+    so equal scores give equal populations.  It runs in-process whatever
+    ``plan.procs`` says, as the JAX package's does."""
     plan = ExecPlan() if plan is None else plan
     cfg = dataclasses.replace(plan.apply_to_config(cfg or SimConfig()),
                               soft_placement=False)
@@ -482,7 +511,8 @@ def main(argv=None) -> None:
     cells = n_cand * len(res.scenarios) * len(res.seeds)
     print(f"# {args.method}: {cells} cells/eval ({n_cand} candidates x "
           f"{len(res.scenarios)} scenarios x {len(res.seeds)} seeds) in "
-          f"{res.wall_s}s, device={device_name(device)}")
+          f"{res.wall_s}s, device={device_name(device)}, "
+          f"{res.n_devices} device(s)")
     if isinstance(res, GradTuneResult):
         arrow = "min" if res.minimize else "max"
         print(f"# best oracle {res.objective} ({arrow}): "

@@ -227,13 +227,27 @@ def test_convert_round_trips_exactly():
 
 
 def test_entry_points_refuse_what_this_slice_lacks():
-    with pytest.raises(NotImplementedError, match="multi-process fabric"):
-        ExecPlan(devices=2)
+    from repro_torch.core.types import resolve_devices
+    from repro_torch.launch import dist as tdist
+    assert ExecPlan(devices=2).devices == 2
+    assert ExecPlan(devices=["cpu", "cpu"]).devices == ("cpu", "cpu")
+    assert resolve_devices(1) is None and resolve_devices(None) is None
+    assert resolve_devices(("cpu", "cpu")) == (torch.device("cpu"),) * 2
+    if torch.cuda.device_count() < 2:   # the port never takes fewer
+        with pytest.raises(RuntimeError, match="devices=2 asks for 2"):
+            resolve_devices(2)
+    with pytest.raises(ValueError, match=">= 1"):
+        resolve_devices(0)
     assert ExecPlan(telescope=True).telescope
-    with pytest.raises(NotImplementedError, match="multi-process fabric"):
-        ExecPlan(procs=2)
-    with pytest.raises(NotImplementedError, match="multi-process fabric"):
-        ExecPlan(telescope=True, procs=2)
+    plan = ExecPlan(procs=2, devices_per_proc=2)
+    assert (plan.procs, plan.devices_per_proc) == (2, 2)
+    with pytest.raises(ValueError, match=">= 1"):
+        ExecPlan(procs=0)
+    # procs with telescope: the JAX package's refusal
+    with pytest.raises(ValueError, match="telescope is not threaded"):
+        tdist._resolve_dist_plan(ExecPlan(telescope=True, procs=2),
+                                 SimConfig())
+    assert tdist._resolve_dist_plan(None, SimConfig())[0].procs == 2
     assert ExecPlan(telescope=False, procs=1, devices=1).delay_kernel is None
     cfg = SimConfig(soft_placement=True, batched_placement=False, horizon=2)
     spec, sim0 = torch_state(cfg)

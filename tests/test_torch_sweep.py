@@ -287,12 +287,26 @@ def test_grid_with_differing_topology_raises():
         tsweep.stack_policies(["netaware",
                                PolicyParams(weights=torch.zeros(5))],
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-process fabric"):
-        tsweep.make_sweep_fn(cfg, 8, 14, 2, devices=2)
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError, match="devices=2 asks for 2"):
+            tsweep.make_sweep_fn(cfg, 8, 14, 2, devices=2)
+        with pytest.raises(RuntimeError, match="devices=2 asks for 2"):
+            tsweep.make_grad_fn(soft, 8, 14, 2, devices=2)
     with pytest.raises(ValueError, match="soft_placement"):
         tsweep.make_grad_fn(cfg, 8, 14, 2)
-    with pytest.raises(NotImplementedError, match="multi-process fabric"):
-        tsweep.make_grad_fn(soft, 8, 14, 2, devices=2)
+    # two devices on an odd grid (3 cells: the pad path runs): the stacked
+    # sweep and the gradient bit for bit their one-device results
+    odd = tree_map(lambda x: x[:1, :1], sims)
+    rps1 = tree_map(lambda x: x[:1], rps)
+    pols3 = tsweep.stack_policies(POLICIES + ["firstfit"], device="cpu")
+    two = ("cpu", "cpu")
+    for make, c in ((tsweep.make_sweep_fn, cfg), (tsweep.make_grad_fn, soft)):
+        one, split = make(c, 8, 14, 12), make(c, 8, 14, 12, devices=two)
+        assert (one.n_devices, split.n_devices) == (1, 2)
+        for x, y in zip(one(odd, pols3, rps1), split(odd, pols3, rps1)):
+            assert_bitwise(x, y)
+    chunked = tsweep.make_grad_fn(soft, 8, 14, 12, chunk=4, devices=two)
+    assert chunked.n_devices == 1        # unsharded, as in the JAX package
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tsweep.run_sweep(policies=POLICIES, cfg=cfg)

@@ -537,10 +537,14 @@ def test_csv_and_procs_with_telescope_refused(tmp_path):
     with pytest.raises(ValueError, match="drop --telescope"):
         tsim.run_one("firstfit", SimConfig(**SMALL), None, None, None,
                      csv=str(tmp_path / "m.csv"), plan=TELESCOPE)
-    with pytest.raises(NotImplementedError, match="multi-process fabric"):
-        ExecPlan(telescope=True, procs=2)
-    with pytest.raises(NotImplementedError, match="multi-process fabric"):
-        ttune.main(["--device", "cpu", "--procs", "2", "--telescope"])
+    from repro_torch.launch import dist as tdist
+    with pytest.raises(ValueError, match="telescope is not threaded"):
+        tdist.run_dist_sweep(policies=["firstfit"], cfg=SimConfig(**SMALL),
+                             plan=ExecPlan(telescope=True, procs=2),
+                             device="cpu")
+    with pytest.raises(ValueError, match="telescope is not threaded"):
+        ttune.main(["--device", "cpu", "--procs", "2", "--chunk", "8",
+                    "--telescope"])
 
 
 def test_sweep_and_tune_clis_telescope(tmp_path):

@@ -13,6 +13,7 @@
 import contextlib
 import functools
 import io
+import json
 
 import pytest
 
@@ -135,13 +136,29 @@ def test_run_tune_cem_matches_jax(monkeypatch):
     assert tres.method == "cem" and tres.oracle_evals == jres.oracle_evals
 
 
-def test_unported_searches_raise_naming_their_slice():
-    with pytest.raises(NotImplementedError, match="multi-process fabric"):
+def test_unported_searches_raise_naming_their_slice(tmp_path, monkeypatch):
+    """``--procs`` runs the random search through the multi-process fabric
+    with the in-process scores exactly; without ``--chunk``, with
+    ``--telescope`` and with ``--method grad`` it raises as in JAX."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    with pytest.raises(ValueError, match="requires chunk"):
         ttune.main(["--device", "cpu", "--procs", "2"])
-    with pytest.raises(NotImplementedError, match="multi-process fabric"):
-        ttune.run_tune(n_samples=2, plan=ExecPlan(procs=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-process fabric"):
-        ttune.main(["--device", "cpu", "--procs", "2", "--telescope"])
+    with pytest.raises(ValueError, match="telescope is not threaded"):
+        ttune.main(["--device", "cpu", "--procs", "2", "--chunk", "8",
+                    "--telescope"])
+    with pytest.raises(ValueError, match="grad mode is single-process"):
+        ttune.main(["--device", "cpu", "--method", "grad", "--procs", "2",
+                    "--chunk", "8"])
+    scores = []
+    for extra in ([], ["--procs", "2", "--devices-per-proc", "2"]):
+        out = tmp_path / f"tune{len(extra)}.json"
+        with contextlib.redirect_stdout(io.StringIO()):
+            ttune.main(["--device", "cpu", "--samples", "3", "--hosts", "6",
+                        "--horizon", "20", "--chunk", "8", "--out", str(out)]
+                       + extra)
+        scores.append(json.loads(out.read_text())["scores"])
+    assert scores[0] == scores[1]
+    assert all(np.isfinite(s) for s in scores[0])
 
 
 def test_tune_cli_runs_on_cpu():
