@@ -4,9 +4,10 @@
 
 Phases, in order, each of which fails the script when it fails:
   1. build the four CUDA kernels from src/repro_torch/kernels/csrc/ (one
-     nvcc per source, started together) and print ptxas's registers, static shared memory and spills for
-     seg_waterfill's one-launch entry points, fw_minplus's two
-     (fw_panels, fw_tiles) and the two LM kernels' tensor-core ones;
+     nvcc per source, started together) and print ptxas's registers,
+     static shared memory and spills for seg_waterfill's one-launch entry
+     points, fw_minplus's two (fw_panels, fw_tiles), the two LM kernels'
+     tensor-core ones and flash_attention's FP32-pipe ones at D 256;
   2. hold the simulator's kernels against their plain PyTorch versions on
      the card, at the main path's shapes and at edge shapes, and time
      both (CUDA events around 10 back-to-back launches, median of 3 such
@@ -33,18 +34,24 @@ Phases, in order, each of which fails the script when it fails:
      that ran and its CUDA launches per call: flash_attention at the
      zamba2-1.2b prefill shape, a qwen2.5-3b GQA shape (Hq 16, Hkv 2,
      D 128), an edge shape (S below one tile, MQA, f32), a ragged S on the
-     tensor-core variant (S 1000) and bf16 at D 32 on the FP32-pipe
-     variant — on bf16 outputs every element within 2 bf16 ulps of the
+     tensor-core variant (S 1000), bf16 at D 32 on the FP32-pipe variant
+     and paligemma-3b's prefill shape (B 4, S 2048, Hq 8, Hkv 1, D 256,
+     bf16, the FP32-pipe variant) — on bf16 outputs every element within 2 bf16 ulps of the
      plain version's plus 1e-5, a limit that the same attention with p or
      the PV accumulator rounded to bf16 must miss at the zamba2 shape (the
-     controls); rtol/atol 1e-5 on f32 — timed at the zamba2 and qwen2.5
-     shapes with SDPA beside it as the library yardstick; ssd_scan at the
+     controls); rtol/atol 1e-5 on f32 — timed at the zamba2, qwen2.5 and
+     D 256 shapes with SDPA beside it as the library yardstick; ssd_scan at the
      zamba2-1.2b shape, the mamba2-1.3b shape (N 128) and a one-chunk
      ragged edge — within rtol/atol 1e-4;
   4. the paper experiment: the six policies at 20 hosts / 300 containers,
      horizon 120, kernels 'auto', each completing 300/300 (ticks/s
      printed) and agreeing with the port's CPU run (plain versions) leaf
      by leaf;
+  4a. ML jobs through core/bridge.py: examples/schedule_training_
+     cluster.py's fallback jobs (3 jobs x 6 workers) on its testbed (paper
+     hosts, the Fig 3 fabric at bw 10000, horizon 220) for round,
+     performance_first, jobgroup and netaware: one seg_waterfill launch a
+     tick, the card against the port's CPU run as in phase 4;
   5. the simulator's main path at real size: 2000 hosts / 6000
      containers, 'fw' delay refresh, policy netaware, horizon 40 — launch
      counts reset just before and read just after, ticks/s and peak device
@@ -126,6 +133,13 @@ Phases, in order, each of which fails the script when it fails:
      decode logits within 4 bf16 ulps of their largest magnitude while
      the tokens agree, tokens equal wherever the CPU's top-2 margin
      exceeds twice that;
+  6a. the reduced olmoe-1b-7b, paligemma-3b, musicgen-large (kernels) and
+     deepseek-v2-236b (MLA: impl 'ref') on the card against the port's
+     CPU run: the card's greedy run counts its launches (a flash_attention
+     a layer in the prefill, none with 'ref', none in decode); then,
+     teacher forced with the CPU run's tokens and its routing replayed
+     (a choice that differs must be a near tie of the router logits),
+     logits within 4 bf16 ulps and tokens equal as in phase 6;
   7. the LM main path: zamba2-1.2b exactly as published, batch 4, prompt
      2048, 32 generated tokens, weights from init_params(seed=0) on the
      card — launch counts reset just before and read just after (6
@@ -137,14 +151,26 @@ Phases, in order, each of which fails the script when it fails:
      precision, which phase 3 holds; the gap of a prefill whose attention
      rounds p to bf16 is printed beside it); a second kernel run must be
      bit-identical;
+  7a. the same for olmoe-1b-7b (64 experts, top 8; 16 flash_attention
+     launches a prefill), paligemma-3b (256 patch embeddings + 1792
+     tokens, D 256; 18) and musicgen-large (frame embeddings; 48) as
+     published, batch 4, and deepseek-v2-236b at its published widths cut
+     to 3 layers (the dense one + 2 moe; 160 experts, top 6, MLA; impl
+     'ref': 0), batch 2 — weights GiB, prefill ms and its analytic FLOPs,
+     decode tok/s, peak memory and the share of assignments dropped at
+     capacity printed; the plain-version prefill routed as the kernels'
+     run (a differing choice must be a tie of the router logits within 8
+     ulps) within 8 ulps; a second run bit-identical;
   8. seg_waterfill's device events per call of each variant at F = 12000
      under torch.profiler (20 calls each), with each event's device time:
      the shared-memory variant must be one kernel and no memset, the
      global one four kernels and two memsets; fw_minplus's at n = 2402 (10
      calls): two kernels per pivot block (76) and no memset (last, so that
      no profiler session precedes the timed phases).
-The last lines are the card's name and power limit, one JSON line of
-kernel measurements, and the result line.  Imports torch and repro_torch
+The last lines are the script's wall time, the card's name and power
+limit, one JSON line of kernel measurements (flash_attention's launches:
+phases 7 and 7a summed; seg_waterfill's and fw_minplus's: phase 5's), and
+the result line.  Imports torch and repro_torch
 only.  Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -212,7 +238,10 @@ from repro_torch.launch.sweep import (make_grad_fn,  # noqa: E402
 from repro_torch.launch.tune import run_tune, run_tune_grad  # noqa: E402
 from repro_torch.launch.dist import (GridSpec, run_dist_sweep,  # noqa: E402
                                      run_spec, run_worker_inline)
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.core import bridge  # noqa: E402
+from repro_torch.serve.step import make_decode_step, start  # noqa: E402
 
 DEV = torch.device("cuda")
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, the FP32 rate
@@ -282,8 +311,9 @@ def entry_label(line):
 
 def ptxas_report(name):
     """One line per entry point of kernel ``name``'s build in this process
-    that chip_smoke reports (the LM kernels' tensor-core ones, not the
-    FP32-pipe flash_fwd_fp32; seg_waterfill's one-launch ones; both of
+    that chip_smoke reports (the LM kernels' tensor-core ones and the
+    FP32-pipe flash_fwd_fp32 at D 256, whose 4 x 16 accumulators a thread
+    are its register risk; seg_waterfill's one-launch ones; both of
     fw_minplus), from
     ptxas's ``-Xptxas -v`` report: registers, static shared memory (the
     kernels take theirs dynamically, at launch), stack and spills."""
@@ -291,7 +321,8 @@ def ptxas_report(name):
     for line in _build.BUILD_LOGS.get(name, "").splitlines():
         if "Compiling entry function" in line:
             label = entry_label(line)
-            if label and not label.startswith("flash_fwd_fp32"):
+            if label and (not label.startswith("flash_fwd_fp32")
+                          or label.endswith(",256>")):
                 out[label] = []
             continue
         if label not in out:
@@ -756,6 +787,9 @@ def attention_low_precision(q, k, v, causal=True, scale=None, round_p=True,
     return o.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
 
 
+D256 = "paligemma-3b B=4 S=2048 Hq=8 Hkv=1 D=256 bf16"
+
+
 def check_lm_kernels():
     rows = {}
     errs = []
@@ -770,7 +804,8 @@ def check_lm_kernels():
             ("ragged B=1 S=1000 Hq=Hkv=4 D=64 bf16", (1, 1000, 4, 4, 64),
              torch.bfloat16),
             ("D=32 B=2 S=256 Hq=4 Hkv=2 bf16", (2, 256, 4, 2, 32),
-             torch.bfloat16)):
+             torch.bfloat16),
+            (D256, (4, 2048, 8, 1, 256), torch.bfloat16)):
         q, k, v = flash_inputs(*shape, dtype, seed=len(errs) + 10)
         ok = flash_attention(q, k, v)
         with reference_mode():
@@ -803,7 +838,7 @@ def check_lm_kernels():
                                              f"attention with bf16 {what}")
                     log(f"flash_attention {name} control, {what} rounded "
                         f"to bf16: {share:.3f} of the limit (must exceed 1)")
-        if len(main) < 2:             # timed: the zamba2 and qwen2.5 shapes
+        if len(main) < 2 or name == D256:   # timed: zamba2, qwen2.5, D 256
             main[name] = (shape, (q, k, v))
     for i, (name, (shape, (q, k, v))) in enumerate(main.items()):
         ms = time_ms(lambda: flash_attention(q, k, v))
@@ -1018,6 +1053,253 @@ def full_width_serve():
         f"{out2['prefill_ms']:.3f} ms, decode {out2['decode_tok_s']:.2f} "
         f"tok/s)")
     return {k: pf[k] + dec[k] for k in pf}
+
+
+# ---------------------------------------------------------------------------
+# Phases 6a and 7a: the moe family, MLA and the patch/frame frontends
+# ---------------------------------------------------------------------------
+# arch, impl, batch, depth (None: as published), flash_attention launches
+# per prefill; deepseek-v2-236b's 60 layers (236 B parameters) do not fit
+# one card: its depth is cut to the leading dense layer and 2 moe layers
+# at the published widths, and MLA has no kernel (impl 'ref')
+FAMILIES = (("olmoe-1b-7b", "kernel", 4, None, 16),
+            ("paligemma-3b", "kernel", 4, None, 18),
+            ("musicgen-large", "kernel", 4, None, 48),
+            ("deepseek-v2-236b", "ref", 2, 3, 0))
+
+
+def family_cfg(cfg, impl, n_layers=None):
+    cfg = dataclasses.replace(cfg, attn_impl=impl, ssm_impl=impl)
+    return dataclasses.replace(cfg, n_layers=n_layers) if n_layers else cfg
+
+
+def n_moe_layers(cfg) -> int:
+    return cfg.n_layers - cfg.first_dense if cfg.n_experts else 0
+
+
+def teacher_forced(cfg, params, batch, ref):
+    """The prefill, then one decode step per token of ``ref`` (a ``serve``
+    result) fed the tokens ``ref`` fed: the logits in ``serve``'s form."""
+    n = ref["tokens"].shape[1]
+    _, logits, cache, seq_len = start(cfg, params, batch, n)
+    dev = logits.device
+    feed = torch.cat([ref["logits"].argmax(-1)[:, None],
+                      ref["tokens"][:, :-1].long()], dim=1).to(dev)
+    decode = make_decode_step(cfg)
+    steps = []
+    for t in range(n):
+        _, lg, cache = decode(params, feed[:, t:t + 1], cache, seq_len + t)
+        steps.append(lg)
+    return {"tokens": ref["tokens"].to(dev), "logits": logits,
+            "step_logits": torch.stack(steps, dim=1)}
+
+
+def reduced_families():
+    """Phase 6a: the four families' reduced configs on the card against the
+    port's CPU run from the same weights and prompts.  The card's own
+    greedy run (``serve``) counts its launches; the comparison is teacher
+    forced: the card fed the CPU run's tokens, its routing held to the CPU
+    run's (``moe.log_routing``: a differing choice must be a near tie of
+    the router logits), logits within MODEL_ULPS ulps and tokens equal
+    wherever the CPU's margin is clear."""
+    B, S, n = 4, 64, 8
+    for arch, impl, _, _, _ in FAMILIES:
+        cfg = family_cfg(get_reduced(arch), impl)
+        params = transformer.init_params(cfg, seed=0, device="cpu")
+        with moe_mod.log_routing() as routes:
+            cpu = serve(cfg, params, prompt_batch(cfg, B, S, 0, "cpu"), n)
+        gparams = transformer.map_leaves(lambda a: a.to(DEV), params)
+        gbatch = prompt_batch(cfg, B, S, 0, DEV)
+        gpu = serve(cfg, gparams, gbatch, n)
+        want = cfg.n_layers if impl == "kernel" else 0
+        if gpu["prefill_launches"] != {"seg_waterfill": 0, "fw_minplus": 0,
+                                       "flash_attention": want,
+                                       "ssd_scan": 0} \
+                or any(gpu["decode_launches"].values()):
+            raise AssertionError(f"reduced {arch} launches: prefill "
+                                 f"{gpu['prefill_launches']}, decode "
+                                 f"{gpu['decode_launches']}")
+        with moe_mod.log_routing(replay=routes.topi) as rep:
+            forced = teacher_forced(cfg, gparams, gbatch, cpu)
+        gap, compared = compare_greedy(cpu, forced, MODEL_ULPS)
+        log(f"reduced {arch} ({impl}) serve B={B} S={S} gen={n}: card "
+            f"equals the CPU run, teacher forced ({compared} of {B * n} "
+            f"tokens compared, logits at most {gap:.2f} bf16 ulps apart, "
+            f"{sum(rep.replaced)} of {sum(a for a, _ in routes.drops)} "
+            f"top-k positions replayed at a near tie), launches "
+            f"{gpu['prefill_launches']}")
+
+
+def prefill_flops(cfg, B, S) -> float:
+    """The prefill's products (2 FLOP a multiply-add): projections, MLPs and
+    the grouped expert products over all E x C capacity slots, causal
+    attention (its half of S^2), the router and the last position's
+    unembedding."""
+    T, d, H = B * S, cfg.d_model, cfg.n_heads
+    if cfg.use_mla:
+        dk, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+        proj = (d * cfg.q_lora_rank + cfg.q_lora_rank * H * dk
+                + d * (cfg.kv_lora_rank + cfg.qk_rope_dim)
+                + cfg.kv_lora_rank * H * (cfg.qk_nope_dim + dv) + H * dv * d)
+    else:
+        dk = dv = cfg.d_head
+        proj = d * (H + 2 * cfg.n_kv_heads) * dk + H * dk * d
+    per_layer = 2.0 * T * proj + 2.0 * B * H * (dk + dv) * S * (S + 1) / 2
+    n_moe = n_moe_layers(cfg)
+    flops = cfg.n_layers * per_layer
+    flops += (cfg.n_layers - n_moe) * 2.0 * T * 3 * d * cfg.d_ff
+    if n_moe:
+        C = moe_mod.capacity(T, cfg)
+        f = cfg.d_ff_expert
+        flops += n_moe * (2.0 * 3 * cfg.n_experts * C * d * f
+                          + 2.0 * T * d * cfg.n_experts
+                          + 2.0 * T * 3 * d * cfg.n_shared_experts * f)
+    return flops + 2.0 * B * d * cfg.vocab_padded
+
+
+def family_serve(arch, impl, B, n_layers, want_flash, S=2048, n=32):
+    """Phase 7a, one model at full width (see FAMILIES), through ``serve``:
+    launch counts reset just before and read just after (``want_flash``
+    flash_attention in the prefill, none in decode), logits finite, the
+    same prefill through the plain versions (routing held to the kernel
+    run's) within FULL_ULPS, a second run bit-identical.  Returns the
+    launches of the first run."""
+    cfg = family_cfg(get_config(arch), impl, n_layers)
+    t0 = time.time()
+    params = transformer.init_params(cfg, seed=0, device=DEV)
+    batch = prompt_batch(cfg, B, S, 0, DEV)
+    torch.cuda.synchronize()
+    leaves = []
+    transformer.map_leaves(leaves.append, params)
+    weights = sum(a.numel() * a.element_size() for a in leaves)
+    del leaves
+    log(f"{arch} ({cfg.n_layers} layers): weights {weights / 2**30:.3f} "
+        f"GiB, drawn in {time.time() - t0:.2f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    with moe_mod.log_routing() as routes:
+        out = serve(cfg, params, batch, n)      # counts reset inside
+    peak = torch.cuda.max_memory_allocated()
+    pf, dec = out["prefill_launches"], out["decode_launches"]
+    if pf != {"seg_waterfill": 0, "fw_minplus": 0,
+              "flash_attention": want_flash, "ssd_scan": 0} \
+            or any(dec.values()):
+        raise AssertionError(f"{arch} launches: prefill {pf}, decode {dec}")
+    toks = out["tokens"]
+    if toks.shape != (B, n) or not bool(((toks >= 0)
+                                         & (toks < cfg.vocab_padded)).all()):
+        raise AssertionError(f"{arch} tokens {toks.shape}")
+    for k in ("logits", "step_logits"):
+        if not bool(torch.isfinite(out[k]).all()):
+            raise AssertionError(f"{arch} {k} not finite")
+    n_moe = n_moe_layers(cfg)
+    drops = ""
+    if n_moe:
+        share = moe_mod.dropped_share
+        drops = (f", dropped at capacity C = "
+                 f"{moe_mod.capacity(B * S, cfg)}: "
+                 f"{share(routes.drops[:n_moe]):.6f} of the prefill's "
+                 f"assignments, {share(routes.drops[n_moe:]):.6f} of "
+                 f"decode's")
+    flops = prefill_flops(cfg, B, S)
+    log(f"{arch} serve B={B} prompt={S} gen={n}: prefill "
+        f"{out['prefill_ms']:.3f} ms ({flops:.4e} FLOP, "
+        f"{flops / out['prefill_ms'] / 1e9:.1f} TFLOP/s), decode "
+        f"{out['decode_tok_s']:.2f} tok/s, peak device memory "
+        f"{peak / 2**30:.3f} GiB{drops}, launches prefill {pf} decode {dec}")
+
+    # the same prefill through the plain versions, routed as the kernels'
+    # run: over a full-width stack the two runs' router logits drift apart
+    # as their final logits may, so a near tie is held to FULL_ULPS too
+    with plain_versions(), reference_mode(), \
+            moe_mod.log_routing(replay=routes.topi[:n_moe],
+                                tie_ulps=FULL_ULPS) as rep:
+        reset_launch_counts()
+        ref_logits, _, _ = transformer.prefill(cfg, params, batch)
+        torch.cuda.synchronize()
+        plain_counts = dict(LAUNCHES)
+    if any(plain_counts.values()):
+        raise AssertionError(f"plain-version prefill launched {plain_counts}")
+    gap = ulp_gap(out["logits"], ref_logits)
+    if gap > FULL_ULPS:
+        raise AssertionError(f"{arch} prefill logits {gap:.2f} bf16 ulps "
+                             f"from the plain versions' (> {FULL_ULPS})")
+    log(f"{arch} prefill through the plain versions: logits {gap:.2f} bf16 "
+        f"ulps from the kernels' (bound {FULL_ULPS}; {sum(rep.replaced)} of "
+        f"{sum(a for a, _ in rep.drops)} top-k positions replayed at a tie "
+        f"within {FULL_ULPS} ulps)")
+    del ref_logits
+
+    out2 = serve(cfg, params, batch, n)
+    for k in ("tokens", "logits", "step_logits"):
+        if not torch.equal(out[k], out2[k]):
+            raise AssertionError(f"second {arch} run's {k} differs")
+    log(f"{arch} second run: bit-identical tokens and logits (prefill "
+        f"{out2['prefill_ms']:.3f} ms, decode {out2['decode_tok_s']:.2f} "
+        f"tok/s)")
+    del params, out, out2, routes
+    torch.cuda.empty_cache()
+    return {k: pf[k] + dec[k] for k in pf}
+
+
+def families_phase():
+    counts = {}
+    for arch, impl, B, n_layers, want_flash in FAMILIES:
+        got = family_serve(arch, impl, B, n_layers, want_flash)
+        counts = {k: counts.get(k, 0) + v for k, v in got.items()}
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 4a: ML jobs through the bridge
+# ---------------------------------------------------------------------------
+# examples/schedule_training_cluster.py's fallback_jobs(): arch, shape,
+# workers, steps, FLOP a step a worker, bytes a step a worker, GB a worker
+BRIDGE_JOBS = (("smollm-360m", "train_4k", 6, 10, 1.5e14, 5e9, 4.0),
+               ("qwen2.5-3b", "train_4k", 6, 10, 1.2e14, 7e9, 8.0),
+               ("olmoe-1b-7b", "train_4k", 6, 10, 6e13, 9e9, 8.0))
+
+
+def bridge_state(cfg, device):
+    spec, net = build_paper_network(cfg, bw=10000.0, device=device)
+    jobs = [bridge.MLJobSpec(*j) for j in BRIDGE_JOBS]
+    return spec, init_sim(build_paper_hosts(device=device),
+                          bridge.workload_from_jobs(jobs, cfg,
+                                                    device=device), net)
+
+
+def bridge_phase():
+    """Phase 4a: the example's ML jobs (18 containers) on its testbed
+    (paper hosts, the Fig 3 fabric at bw 10000, horizon 220, 10 containers
+    a host) for round, performance_first, jobgroup and netaware: launch
+    counts reset before each run and read after (one seg_waterfill a
+    tick), the card against the port's CPU run as phase 4 holds them."""
+    cfg = SimConfig(horizon=220, max_containers_per_host=10)
+    for policy in ("round", "performance_first", "jobgroup", "netaware"):
+        spec, sim0 = bridge_state(cfg, DEV)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        final, metrics = run_sim(sim0, cfg, get_policy(policy, device=DEV),
+                                 spec.n_hosts, spec.n_nodes, cfg.horizon)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        if counts != {"seg_waterfill": cfg.horizon, "fw_minplus": 0,
+                      "flash_attention": 0, "ssd_scan": 0}:
+            raise AssertionError(f"bridge {policy}: launch counts {counts}")
+        rep = summarize(final, metrics)
+        if rep["n_completed"] <= 0:
+            raise AssertionError(f"bridge {policy}: nothing completed")
+        spec_c, sim_c = bridge_state(cfg, "cpu")
+        ref, ref_m = run_sim(sim_c, cfg, get_policy(policy, device="cpu"),
+                             spec_c.n_hosts, spec_c.n_nodes, cfg.horizon)
+        assert_state_close(final, ref, rtol=1e-5, atol=1e-4)
+        assert_state_close(metrics, ref_m, rtol=1e-4, atol=1e-4)
+        log(f"bridge {policy:18s}: completed {rep['n_completed']}/"
+            f"{sim0.containers.status.shape[0]}, avg runtime "
+            f"{rep['avg_runtime']:.2f}, avg comm {rep['avg_comm_time']:.2f},"
+            f" {cfg.horizon / wall:.3f} ticks/s, launches {counts}, matches "
+            f"the CPU run")
 
 
 # ---------------------------------------------------------------------------
@@ -1779,6 +2061,7 @@ def _leaves(t, prefix=""):
 
 
 def main():
+    t_start = time.time()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.time()
@@ -1800,6 +2083,7 @@ def main():
     rows = check_kernels(real_net, 2000)
     rows.update(check_lm_kernels())
     paper_experiment()
+    bridge_phase()
     real = real_size_run()
     sim_counts = real["counts"]
     streaming_run(real)
@@ -1810,7 +2094,10 @@ def main():
     telescope_phase(real)
     del real
     reduced_serve()
+    reduced_families()
     lm_counts = full_width_serve()
+    for k, v in families_phase().items():
+        lm_counts[k] += v
     check_waterfill_launches(real_net, 2000)
     check_fw_launches()
     for name, row in rows.items():
@@ -1820,6 +2107,7 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
+    log(f"chip_smoke wall time {time.time() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": [rows[k] for k in _build.SOURCES]}))
     print(json.dumps({"ok": True, "device": {

@@ -42,10 +42,13 @@
 //   fragment of S maps onto the A-operand fragment of P V element for
 //   element (rows lane/4 and lane/4 + 8 of the warp's 16, columns
 //   2 (lane % 4) + {0, 1} and + 8), so no shuffle is needed.
-// * f32, or D in {16, 32}: the FP32-pipe kernel (flash_fwd_fp32), one
-//   block of 256 threads per (q tile, q head, batch) with q, k, v and p
-//   as f32 in shared memory and scalar FMAs; the reduced configs' D = 16
-//   and f32 inputs take it.
+// * f32, or D in {16, 32, 256}: the FP32-pipe kernel (flash_fwd_fp32),
+//   one block of 256 threads per (q tile, q head, batch) with q, k, v and
+//   p as f32 in shared memory and scalar FMAs; the reduced configs' D =
+//   16, f32 inputs and paligemma-3b's D = 256 (MQA, Hq 8, Hkv 1) take it.
+//   At D = 256 a block holds (64 * 257 + 64 * 257 + 64 * 256 + 64 * 65) *
+//   4 = 213,760 bytes of shared memory (one block an SM, under the 227 KB
+//   opt-in) and a thread 4 x 16 accumulators.
 //
 // Both skip causal tiles above the diagonal, mask k > q on the diagonal
 // tile and k >= S on a ragged last tile.
@@ -237,6 +240,7 @@ cudaError_t dispatch_fp32(const void* q, const void* k, const void* v,
     FA_CASE(32)
     FA_CASE(64)
     FA_CASE(128)
+    FA_CASE(256)
     default: return cudaErrorInvalidValue;
   }
 #undef FA_CASE
@@ -663,7 +667,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q [B,S,Hq,D], k/v [B,S,Hkv,D], o [B,S,Hq,D], all contiguous and of one
-// type: bf16 when is_bf16, else f32.  D in {16, 32, 64, 128}; Hq % Hkv == 0.
+// type: bf16 when is_bf16, else f32.  D in {16, 32, 64, 128, 256};
+// Hq % Hkv == 0.
 // use_wgmma (bf16 with D in {64, 128} only) picks the tensor-core variant,
 // else the FP32-pipe one runs; the caller chooses by type and D alone.
 // Returns cudaGetLastError() after the launch (0 on success).

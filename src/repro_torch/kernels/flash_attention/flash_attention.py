@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, check_cuda_tensor
 
-HEAD_DIMS = (16, 32, 64, 128)   # the kernel's template instances
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's template instances
 WGMMA_HEAD_DIMS = (64, 128)     # the tensor-core variant's, on bf16
 CUDA_LAUNCHES_PER_CALL = 1
 NEG_INF = -1e30
@@ -61,7 +61,7 @@ def variant(dtype, D: int) -> str:
     """The kernel variant a CUDA call runs, by input type and head dim
     alone: ``'wgmma'`` (TMA ring, bf16 tensor cores, p split into two bf16
     parts) for bf16 with D in ``WGMMA_HEAD_DIMS``, else ``'fp32'`` (the
-    FP32-pipe kernel)."""
+    FP32-pipe kernel: f32 inputs, and D 16, 32 or 256)."""
     return "wgmma" if (dtype == torch.bfloat16
                        and D in WGMMA_HEAD_DIMS) else "fp32"
 

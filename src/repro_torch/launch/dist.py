@@ -26,9 +26,13 @@ runner over processes.  The design is the JAX package's,
   the distributed result is BIT-IDENTICAL to the single-process sweep.
 
 The grid spec, the slab plan, the slab checkpoints and the merge are the
-JAX package's: a ``GridSpec`` JSON is key for key the JAX one, and a slab
-written by the JAX package merges here.  (A port slab lacks the JAX
-state's ``rng`` leaf, which the port's ``SimState`` does not have.)
+JAX package's: a ``GridSpec`` JSON is key for key the JAX one, a slab
+written by the JAX package merges here, and a slab written here merges
+in the JAX package.  The JAX state carries one leaf the port's
+``SimState`` does not have, its last, ``rng`` (the cell's
+``jax.random.PRNGKey(seed)``, which no tick changes): a port slab writes
+it under its JAX index, built in numpy from each cell's seed
+(:func:`jax_rng_leaf`), and the port's merge does not read it.
 
 A worker runs on ``device``'s type: worker ``i`` with ``d`` devices a
 process takes the CUDA devices ``(i*d + j) % torch.cuda.device_count()``
@@ -360,13 +364,26 @@ def completed_slab_starts(out_dir: str) -> set[int]:
     return done
 
 
+def jax_rng_leaf(seeds: Sequence[int], s0: int, real: int) -> np.ndarray:
+    """The JAX state's ``rng`` leaf of cells ``s0 .. s0 + real - 1`` (seed
+    innermost in the [P, S, N] cell order): ``jax.random.PRNGKey(seed)``
+    of the default threefry implementation with 32-bit seeds, u32[2] =
+    [0, seed mod 2^32]."""
+    cells = np.arange(s0, s0 + real)
+    seed = np.asarray(seeds, np.int64)[cells % len(seeds)]
+    return np.stack([np.zeros_like(seed), seed & 0xFFFFFFFF],
+                    axis=1).astype(np.uint32)
+
+
 def _write_slab(out_dir: str, s0: int, real: int, leaves, statics,
-                slab_sum: OnlineSummary) -> None:
+                slab_sum: OnlineSummary, seeds: Sequence[int]) -> None:
     final = os.path.join(out_dir, f"slab_{s0:08d}")
     tmp = final + f".tmp{os.getpid()}"
+    finals = {f"leaf_{i:03d}": x[:real]
+              for i, x in enumerate(leaves) if i not in statics}
+    finals[f"leaf_{len(leaves):03d}"] = jax_rng_leaf(seeds, s0, real)
     state = {
-        "finals": {f"leaf_{i:03d}": x[:real]
-                   for i, x in enumerate(leaves) if i not in statics},
+        "finals": finals,
         "summary": {k: v[:real]
                     for k, v in zip(OnlineSummary._fields, slab_sum)},
     }
@@ -409,7 +426,8 @@ def _worker_loop(spec: GridSpec, out_dir: str, process_id: int, *,
     owned, walls = [], []
     t_prev = time.monotonic()
     for s0, leaves, slab_sum in fn.iter_slabs(g.sims, g.pol, g.rps, starts):
-        _write_slab(out_dir, s0, min(Bs, B - s0), leaves, statics, slab_sum)
+        _write_slab(out_dir, s0, min(Bs, B - s0), leaves, statics, slab_sum,
+                    spec.seeds)
         owned.append(int(s0))
         now = time.monotonic()
         walls.append(round(now - t_prev, 4))

@@ -11,7 +11,8 @@ supports, plus ``--device`` (default ``cuda``; without a CUDA device the
 run fails unless ``--device cpu`` is given) and ``--impl`` (``kernel``,
 the default: the flash_attention and ssd_scan kernels, whose wrappers run
 their plain versions on the CPU; ``ref``: the model's reference path),
-applied to both ``attn_impl`` and ``ssm_impl``.  Weights are random, from
+applied to both ``attn_impl`` and ``ssm_impl``; deepseek's MLA has no
+kernel and takes ``--impl ref``.  Weights are random, from
 ``--seed``.  Prints the JAX launcher's line plus the device, prefill
 milliseconds, decode tokens/s and the kernel launch counts.
 """
@@ -38,11 +39,26 @@ def _sync(device: torch.device) -> None:
 
 
 def prompt_batch(cfg, batch: int, prompt_len: int, seed: int, device):
-    """Random prompt tokens [batch, prompt_len] from ``seed`` (numpy, as
-    the JAX launcher draws them)."""
+    """A batch of ``batch`` random prompts of ``prompt_len`` positions from
+    ``seed``, drawn with numpy as the JAX launcher draws them and in its
+    order: token ids [B, S]; for paligemma's patch frontend first the
+    ``n_prefix`` patch embeddings [B, Np, d] (standard normal, bf16), then
+    the text tokens [B, S - Np]; for musicgen's frame frontend the frame
+    embeddings [B, S, d] alone."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
-    return {"tokens": torch.from_numpy(toks).to(device)}
+    B, S = batch, prompt_len
+    # f64 draws reach bf16 through f32, as jnp.asarray(..., bfloat16) does
+    embeds = lambda shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(device).to(
+            torch.bfloat16)
+    tokens = lambda n: torch.from_numpy(
+        rng.integers(0, cfg.vocab, (B, n)).astype(np.int32)).to(device)
+    if cfg.frontend == "patch_embeds":
+        patches = embeds((B, cfg.n_prefix, cfg.d_model))
+        return {"patch_embeds": patches, "tokens": tokens(S - cfg.n_prefix)}
+    if cfg.frontend == "frame_embeds":
+        return {"frame_embeds": embeds((B, S, cfg.d_model))}
+    return {"tokens": tokens(S)}
 
 
 def serve(cfg, params, batch, n_gen: int) -> dict:
@@ -51,8 +67,8 @@ def serve(cfg, params, batch, n_gen: int) -> dict:
     tokens [B, n_gen], the prefill's last-position logits and each decode
     step's logits [B, n_gen, Vp], ``prefill_ms``, ``decode_tok_s`` and the
     kernel launches of the prefill and of the decode loop."""
-    device = batch["tokens"].device
-    B = batch["tokens"].shape[0]
+    first = next(iter(batch.values()))
+    device, B = first.device, first.shape[0]
     reset_launch_counts()
     _sync(device)
     t0 = time.perf_counter()

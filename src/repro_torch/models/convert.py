@@ -3,9 +3,11 @@
 ``params_from_jax`` takes the JAX model's parameter tree as numpy arrays
 (``jax.tree.map(np.asarray, params)``; no JAX import here) and returns the
 port's tree: the same nested dict under the same names, with stacked
-[L, ...] layer leaves.  The leaves the JAX code casts to bf16 at every use
-(``embed``, ``unembed``, ``wq/wk/wv/wo``, the QKV biases,
-``w_gate/w_up/w_down``, ``in_proj`` and ``out_proj``;
+[L, ...] layer leaves (deepseek's leading dense layers under
+``first_blocks``, as there).  The leaves the JAX code casts to bf16 at
+every use (``embed``, ``unembed``, ``wq/wk/wv/wo``, the QKV biases,
+``w_gate/w_up/w_down`` of the MLPs and the experts, ``in_proj``,
+``out_proj``, the MoE ``router`` and MLA's ``w_dq/w_uq/w_dkv/w_uk/w_uv``;
 ``transformer.BF16_LEAVES``) are stored in bf16 once, which is exact
 because the cast is the same rounding; every other leaf (norm weights,
 ``conv_w``/``conv_b``, ``A_log``, ``D``, ``dt_bias``) stays f32.

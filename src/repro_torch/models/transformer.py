@@ -1,4 +1,4 @@
-"""Decoder assembly for the dense, ssm and hybrid families.
+"""Decoder assembly for every architecture family.
 
 The PyTorch counterpart of the JAX package's ``models/transformer.py``:
 one parameter tree and the entry points
@@ -9,18 +9,22 @@ one parameter tree and the entry points
 * ``decode_step``   — one-token step against the cache.
 
 Layer parameters are stacked ([L, ...] leaves, under the JAX names) and a
-Python loop walks the layers where the JAX code scans them.  The port runs
-on one card: no mesh, sharding or remat.  The moe family, MLA and the
-patch/frame-embedding frontends wait for a later slice (ROADMAP Queue 1
-item 12) and raise ``NotImplementedError``.
+Python loop walks the layers where the JAX code scans them; deepseek's
+leading dense layers live apart (``params["first_blocks"]``,
+``cache["first"]``), as there.  The port runs on one card: no mesh,
+sharding or remat, and the moe layer is the single-card capacity dispatch
+(``models/moe.py``).  MLA runs the reference attention only
+(``check_supported``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.core.types import resolve_device
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -32,20 +36,15 @@ Params = Dict[str, Any]
 # leaves the JAX code casts to bf16 at every use: stored in bf16 once
 BF16_LEAVES = frozenset({"embed", "unembed", "wq", "wk", "wv", "wo", "bq",
                          "bk", "bv", "w_gate", "w_up", "w_down", "in_proj",
-                         "out_proj"})
-_LATER = ("not in this slice of the port (ROADMAP Queue 1 item 12: moe, "
-          "MLA and the patch/frame-embedding frontends come later)")
+                         "out_proj", "router", "w_dq", "w_uq", "w_dkv",
+                         "w_uk", "w_uv"})
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
-    if cfg.family == "moe" or cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: the moe family is {_LATER}")
+    """Raise ``ValueError`` for what the port cannot run: MLA with the
+    flash-attention kernel (``mla.check_impl``)."""
     if cfg.use_mla:
-        raise NotImplementedError(f"{cfg.name}: MLA is {_LATER}")
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is {_LATER}")
+        mla_mod.check_impl(cfg)
 
 
 def map_leaves(fn, tree):
@@ -88,16 +87,27 @@ def _init_block(cfg: ModelConfig, gen, kind: str, device) -> Params:
     if kind == "ssm":
         p["ssm"] = ssm_mod.init_ssm(gen, cfg, device=device)
         return p
-    p["attn"] = init_attn(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
-                          cfg.qkv_bias, device=device)
+    if cfg.use_mla:
+        p["attn"] = mla_mod.init_mla(gen, cfg, device=device)
+    else:
+        p["attn"] = init_attn(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.d_head, cfg.qkv_bias, device=device)
     p["ln2"] = torch.ones((d,), dtype=F32, device=device)
-    p["mlp"] = init_mlp(gen, d, cfg.d_ff, device=device)
+    if kind == "moe":
+        p["moe"] = moe_mod.init_moe(gen, cfg, device=device)
+    else:
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, device=device)
     return p
 
 
-def _block_kind(cfg: ModelConfig) -> str:
+def _block_kinds(cfg: ModelConfig) -> Tuple[str, str, int]:
+    """(first-layers kind, stacked kind, n_first)."""
     check_supported(cfg)
-    return "ssm" if cfg.family in ("ssm", "hybrid") else "dense"
+    if cfg.family in ("ssm", "hybrid"):
+        return "ssm", "ssm", 0
+    if cfg.family == "moe":
+        return "dense", "moe", cfg.first_dense
+    return "dense", "dense", 0
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
@@ -107,15 +117,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     ``convert.params_from_jax``).  Layer leaves are stacked [L, ...];
     the ``BF16_LEAVES`` are stored in bf16, every other leaf in f32."""
     device = resolve_device(device)
-    kind = _block_kind(cfg)
+    first_kind, kind, n_first = _block_kinds(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d, Vp = cfg.d_model, cfg.vocab_padded
 
-    def one(init):
+    def stack(kind, n):
         # cast each layer as it is drawn: the f32 copy of the whole stack
         # is never held at once
-        return cast_bf16_leaves(init())
+        return _stack([cast_bf16_leaves(_init_block(cfg, gen, kind, device))
+                       for _ in range(n)])
 
     params: Params = {
         "embed": (torch.randn((Vp, d), generator=gen, dtype=F32,
@@ -123,30 +134,44 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
         "final_norm": torch.ones((d,), dtype=F32, device=device),
         "unembed": (torch.randn((d, Vp), generator=gen, dtype=F32,
                                 device=device) * d ** -0.5).to(BF16),
-        "blocks": _stack([one(lambda: _init_block(cfg, gen, kind, device))
-                          for _ in range(cfg.n_layers)]),
+        "blocks": stack(kind, cfg.n_layers - n_first),
     }
+    if n_first:
+        params["first_blocks"] = stack(first_kind, n_first)
     if cfg.family == "hybrid":
-        params["shared_attn"] = one(
-            lambda: _init_block(cfg, gen, "dense", device))
+        params["shared_attn"] = cast_bf16_leaves(
+            _init_block(cfg, gen, "dense", device))
     return params
 
 
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
-def _dense_block(p, x, cfg, positions, *, cache=None, cache_len=None):
-    """Residual attention block followed by the dense MLP.
-    Returns (x, new_cache, aux)."""
+def _dense_block(p, x, cfg, positions, *, cache=None, cache_len=None,
+                 kind="dense"):
+    """Residual attention (or MLA) block followed by the MLP or the MoE
+    layer.  Returns (x, new_cache, aux)."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    a, new_cache = attn_block(
-        p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        d_head=cfg.d_head, rope_theta=cfg.rope_theta, positions=positions,
-        impl=cfg.attn_impl, cache_kv=cache, cache_len=cache_len)
+    if cfg.use_mla:
+        if cache is None:
+            a, new_cache = mla_mod.mla_prefill(p["attn"], h, cfg, positions)
+        else:
+            a, new_cache = mla_mod.mla_decode(p["attn"], h, cfg, positions,
+                                              cache, cache_len)
+    else:
+        a, new_cache = attn_block(
+            p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            d_head=cfg.d_head, rope_theta=cfg.rope_theta,
+            positions=positions, impl=cfg.attn_impl, cache_kv=cache,
+            cache_len=cache_len)
     x = x + a
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    y = mlp(p["mlp"], h2)
-    return x + y, new_cache, torch.zeros((), dtype=F32, device=x.device)
+    if kind == "moe":
+        y, aux = moe_mod.moe_layer(p["moe"], h2, cfg)
+    else:
+        y, aux = mlp(p["mlp"], h2), torch.zeros((), dtype=F32,
+                                                device=x.device)
+    return x + y, new_cache, aux
 
 
 def _ssm_res_block(p, x, cfg, *, mode="train", state=None):
@@ -163,32 +188,52 @@ def embed_tokens(params, tokens, cfg):
     return params["embed"].to(BF16)[tokens]
 
 
+def _assemble_input(params, batch, cfg):
+    """Token or stub-frontend embedding -> x [B,S,d] bf16 (see
+    ``config.frontend``): paligemma's patch embeddings ahead of its text
+    tokens, musicgen's frame embeddings alone."""
+    if cfg.frontend == "patch_embeds":
+        prefix = batch["patch_embeds"].to(BF16)               # [B,Np,d]
+        text = embed_tokens(params, batch["tokens"], cfg)
+        return torch.cat([prefix, text], dim=1)
+    if cfg.frontend == "frame_embeds":
+        return batch["frame_embeds"].to(BF16)                 # [B,S,d]
+    return embed_tokens(params, batch["tokens"], cfg)
+
+
 def _run_stack(cfg, params, x, positions, *, mode, cache=None,
                cache_len=None):
-    """Apply the layer stack.  Returns (x, new_cache, aux).
+    """Apply the leading layers, then the stacked ones.  Returns (x,
+    new_cache, aux).
 
     ``cache`` (decode) / the returned cache (prefill) holds stacked
-    [L, ...] leaves, as the JAX package's: ``"layers"`` for dense stacks,
-    ``"ssm"`` (+ ``"attn"`` for zamba2's shared-attention applications)
-    for ssm/hybrid stacks.  Decode updates ``cache`` in place.
+    [L, ...] leaves, as the JAX package's: ``"layers"`` for the stacked
+    attention layers and ``"first"`` for the leading ones, ``"ssm"`` (+
+    ``"attn"`` for zamba2's shared-attention applications) for ssm/hybrid
+    stacks.  Decode updates ``cache`` in place.
     """
-    if _block_kind(cfg) == "ssm":
+    first_kind, kind, n_first = _block_kinds(cfg)
+    if kind == "ssm":
         return _run_ssm_stack(cfg, params, x, positions, mode=mode,
                               cache=cache, cache_len=cache_len)
 
     aux_total = torch.zeros((), dtype=F32, device=x.device)
-    kvs = []
-    for i in range(cfg.n_layers):
-        c_i = None if cache is None else _layer(cache["layers"], i)
-        x, c, aux = _dense_block(_layer(params["blocks"], i), x, cfg,
-                                 positions, cache=c_i, cache_len=cache_len)
-        aux_total = aux_total + aux
-        kvs.append(c)
     new_cache: Dict[str, Any] = {}
-    if mode == "decode":
-        new_cache["layers"] = cache["layers"]      # updated in place
-    elif mode != "train":
-        new_cache["layers"] = _stack(kvs)
+    for key, blocks, n, k in (("first", "first_blocks", n_first, first_kind),
+                              ("layers", "blocks", cfg.n_layers - n_first,
+                               kind)):
+        kvs = []
+        for i in range(n):
+            c_i = None if cache is None else _layer(cache[key], i)
+            x, c, aux = _dense_block(_layer(params[blocks], i), x, cfg,
+                                     positions, cache=c_i,
+                                     cache_len=cache_len, kind=k)
+            aux_total = aux_total + aux
+            kvs.append(c)
+        if not n or mode == "train":
+            continue
+        new_cache[key] = (cache[key] if mode == "decode"    # in place
+                          else _stack(kvs))
     return x, new_cache, aux_total
 
 
@@ -259,7 +304,7 @@ def _hybrid_attn_cache(cfg, B, T, n_apps, device):
 # ---------------------------------------------------------------------------
 def forward_train(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
     """Returns (hidden [B,S,d], aux_loss)."""
-    x = embed_tokens(params, batch["tokens"], cfg)
+    x = _assemble_input(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _, aux = _run_stack(cfg, params, x, positions, mode="train")
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
@@ -267,7 +312,7 @@ def forward_train(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
     """Returns (last-position logits [B,Vp] f32, cache, seq_len)."""
-    x = embed_tokens(params, batch["tokens"], cfg)
+    x = _assemble_input(params, batch, cfg)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     x, cache, _ = _run_stack(cfg, params, x, positions, mode="prefill")
@@ -296,7 +341,7 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device=None):
     """Empty decode cache sized for ``max_len`` positions."""
     device = resolve_device(device)
-    kind = _block_kind(cfg)
+    first_kind, kind, n_first = _block_kinds(cfg)
     z = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=device)
     if kind == "ssm":
         H, Pd, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
@@ -308,5 +353,15 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device=None):
             cache["attn"] = _hybrid_attn_cache(
                 cfg, batch_size, max_len, cfg.n_attn_applications, device)
         return cache
-    shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.d_head)
-    return {"layers": (z(shape, BF16), z(shape, BF16))}
+
+    def attn_cache(n):
+        if cfg.use_mla:
+            return (z((n, batch_size, max_len, cfg.kv_lora_rank), BF16),
+                    z((n, batch_size, max_len, cfg.qk_rope_dim), BF16))
+        shape = (n, batch_size, max_len, cfg.n_kv_heads, cfg.d_head)
+        return (z(shape, BF16), z(shape, BF16))
+
+    cache = {"layers": attn_cache(cfg.n_layers - n_first)}
+    if n_first:
+        cache["first"] = attn_cache(n_first)
+    return cache

@@ -80,13 +80,17 @@ def decode_loop(cfg: ModelConfig, params, tok, cache, seq_len: int,
 
 
 def _batch_seq_len(cfg, batch) -> int:
+    if cfg.frontend == "patch_embeds":
+        return batch["patch_embeds"].shape[1] + batch["tokens"].shape[1]
+    if cfg.frontend == "frame_embeds":
+        return batch["frame_embeds"].shape[1]
     return batch["tokens"].shape[1]
 
 
 def _load_prefill(cfg, cache, pf_cache, seq_len: int):
     """Copy prefill-sized cache entries into the max_len decode cache (in
-    place; returns ``cache``): attention k/v into positions [0, seq_len),
-    SSM states replaced."""
+    place; returns ``cache``): attention k/v (MLA: the latent and the rope
+    key) into positions [0, seq_len), SSM states replaced."""
     for key, full_tree in cache.items():
         for full, part in zip(full_tree, pf_cache[key]):
             if key == "ssm":

@@ -416,9 +416,41 @@ def test_jax_slabs_merge_in_the_port(tmp_path):
     tstate, tstep = dist.ckpt.restore_checkpoint(
         os.path.join(tout, "slab_00000000"), like)
     assert step == tstep == 0
-    assert len(like["finals"]) == len(tleaves) - len(
+    assert len(like["finals"]) == len(tleaves) + 1 - len(   # + rng
         dist._static_indices(dist.build_grid(spec, "cpu").sims))
     for group in like:
         for name in like[group]:
             a, b = jstate[group][name], tstate[group][name]
             assert a.dtype == b.dtype and np.array_equal(a, b), name
+
+
+def test_port_slabs_merge_in_jax(tmp_path):
+    """Slabs written by the port merge in the JAX package: its finals equal
+    the port's merge bit for bit, plus the rng leaf, equal to the JAX
+    run's; its summary equals the port's bit for bit."""
+    import jax
+    from repro.launch import dist as jdist
+    spec = tiny_spec(tiny_cfg(), slab=5)
+    spec_path = str(tmp_path / "spec.json")
+    spec.save(spec_path)
+    jspec = jdist.GridSpec.load(spec_path)
+    tout = str(tmp_path / "port")
+    dist.run_worker_inline(spec, tout, 0, starts_of(spec), device="cpu")
+    finals, summary, _ = dist.merge_out_dir(spec, tout)
+    jfinals, jsummary, jmetas = jdist.merge_out_dir(jspec, tout)
+    assert [m["process_index"] for m in jmetas] == [0]
+    jleaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(jfinals)]
+    tleaves = [x for _, x in tree_leaves_with_path(finals)]
+    assert len(jleaves) == len(tleaves) + 1     # the rng leaf, last
+    for x, y in zip(jleaves, tleaves):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert np.array_equal(x.view(np.uint8), y.view(np.uint8))
+    assert_summary_bitwise(OnlineSummary(*map(np.asarray, jsummary)),
+                           summary)
+    jout = str(tmp_path / "jax")
+    jdist.run_worker_inline(jspec, jout, 0, starts_of(spec))
+    jref, _, _ = jdist.merge_out_dir(jspec, jout)
+    rng = np.asarray(jref.rng)
+    assert rng.dtype == np.uint32 and rng.shape == (2, 2, 3, 2)
+    assert np.array_equal(jleaves[-1], rng)
+    assert np.array_equal(rng[..., 1], np.broadcast_to(SEEDS, (2, 2, 3)))

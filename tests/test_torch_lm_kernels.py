@@ -106,7 +106,8 @@ def attention_low_precision(q, k, v, round_p, round_acc, tile=64):
      (2, 128, 4, 4, 64, False, "float32"),
      (1, 512, 2, 2, 32, True, "float32"),
      (1, 128, 4, 2, 128, True, "float32"),     # qwen/phi4 head dim
-     (2, 128, 4, 2, 128, True, "bfloat16")])
+     (2, 128, 4, 2, 128, True, "bfloat16"),
+     (1, 128, 8, 1, 256, True, "bfloat16")])   # paligemma: MQA, D 256
 def test_flash_matches_jax_interpret_and_ref(B, S, Hq, Hkv, D, causal, dtype):
     jnp, jfa_ops, jfa_ref, _ = jax_side()
     q, k, v = qkv(B, S, Hq, Hkv, D, seed=S + Hq + D)
@@ -240,7 +241,10 @@ def test_cuda_flash_attention_matches_plain_version():
             (4, 2048, 16, 2, 128, True, "bfloat16"),
             (2, 40, 8, 1, 64, True, "float32"),
             (1, 1000, 4, 4, 64, True, "bfloat16"),
-            (2, 256, 4, 2, 32, True, "bfloat16")]:
+            (2, 256, 4, 2, 32, True, "bfloat16"),
+            # D 256 (paligemma-3b's MQA): ragged, full and f32
+            (2, 300, 8, 1, 256, True, "bfloat16"),
+            (1, 128, 2, 2, 256, False, "float32")]:
         td = getattr(torch, dtype)
         q, k, v = (torch.tensor(a, device=dev).to(td)
                    for a in qkv(B, S, Hq, Hkv, D, seed=S))
