@@ -161,6 +161,26 @@ Phases, in order, each of which fails the script when it fails:
      capacity printed; the plain-version prefill routed as the kernels'
      run (a differing choice must be a tie of the router logits within 8
      ulps) within 8 ulps; a second run bit-identical;
+  9. training on one card (before phase 8, so that no profiler session
+     precedes it; its wall time printed): (i) FlashAttentionFn and
+     SSDScanFn at the zamba2-1.2b shapes: forward equal to the raw
+     kernel's and gradients equal to the plain version's autograd on the
+     card (flash_attention_ref; the model's ssd_chunked_ref) bit for bit,
+     a raw wrapper given an input that requires grad raises, forward and
+     forward + backward timed; (ii) reduced smollm-360m and zamba2-1.2b,
+     3 AdamW steps on the card (kernels) and on the CPU (plain versions)
+     from one state and the same SyntheticLM batches: each loss within
+     rtol 1e-3, the CPU parity tests' tolerance; (iii) launch.train on
+     reduced zamba2 with a checkpoint every 2 steps, its last checkpoint
+     removed, rerun: restored at step 2, final state bit-identical to the
+     uninterrupted 4 steps; (iv) zamba2-1.2b as published, batch 4, seq
+     2048, remat on, AdamW on f32 masters, SyntheticLM(seed 0), 4 steps
+     from init_train_state(seed=0), launch counts reset before step 1
+     (12 flash_attention and 76 ssd_scan launches a step: forward and
+     remat rerun), each step's loss and grad norm finite and printed with
+     its ms, the median of steps 2-4, tokens/s and peak memory; one step
+     with impl 'ref' from the same state (loss within rtol 1e-3); a
+     second run: losses, grad norms and final parameters bit-identical;
   8. seg_waterfill's device events per call of each variant at F = 12000
      under torch.profiler (20 calls each), with each event's device time:
      the shared-memory variant must be one kernel and no memset, the
@@ -168,8 +188,9 @@ Phases, in order, each of which fails the script when it fails:
      calls): two kernels per pivot block (76) and no memset (last, so that
      no profiler session precedes the timed phases).
 The last lines are the script's wall time, the card's name and power
-limit, one JSON line of kernel measurements (flash_attention's launches:
-phases 7 and 7a summed; seg_waterfill's and fw_minplus's: phase 5's), and
+limit, one JSON line of kernel measurements (flash_attention's and
+ssd_scan's launches: phases 7, 7a and 9 (iv) summed; seg_waterfill's and
+fw_minplus's: phase 5's), and
 the result line.  Imports torch and repro_torch
 only.  Exits non-zero without a CUDA device.
 """
@@ -242,6 +263,15 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.core import bridge  # noqa: E402
 from repro_torch.serve.step import make_decode_step, start  # noqa: E402
+from repro_torch.data.pipeline import (DataConfig,  # noqa: E402
+                                       SyntheticLM, to_device)
+from repro_torch.kernels.flash_attention import FlashAttentionFn  # noqa: E402
+from repro_torch.kernels.ssd_scan import SSDScanFn  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.models.ssm import ssd_chunked_ref  # noqa: E402
+from repro_torch.train import optimizer as topt  # noqa: E402
+from repro_torch.train.step import (init_train_state,  # noqa: E402
+                                    make_train_step)
 
 DEV = torch.device("cuda")
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, the FP32 rate
@@ -978,9 +1008,11 @@ def reduced_serve():
 @contextlib.contextmanager
 def plain_versions(flash=flash_attention_ref):
     """The model's kernel wrappers swapped for their plain versions (the
-    names the model looks up at each call), with ``flash`` in place of
-    flash_attention: phase 7's reference run and its control."""
-    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    names FlashAttentionFn and SSDScanFn look up at each call), with
+    ``flash`` in place of flash_attention: phase 7's reference run and its
+    control."""
+    fa = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
     ssd = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
     saved = fa.flash_attention, ssd.ssd_scan
     fa.flash_attention, ssd.ssd_scan = flash, ssd_scan_ref
@@ -1247,6 +1279,223 @@ def families_phase():
     for arch, impl, B, n_layers, want_flash in FAMILIES:
         got = family_serve(arch, impl, B, n_layers, want_flash)
         counts = {k: counts.get(k, 0) + v for k, v in got.items()}
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: training on one card
+# ---------------------------------------------------------------------------
+TRAIN_RTOL = 1e-3    # a loss, card against CPU and kernels against 'ref'
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+
+
+def equal_trees(a, b) -> bool:
+    la, lb = topt.tree_leaves(a), topt.tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def grads_of(fn, inputs, cotangent):
+    """(outputs, gradients) of ``fn`` at fresh leaf copies of ``inputs``."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    first = out[0] if isinstance(out, tuple) else out
+    return out, torch.autograd.grad(first, leaves, cotangent)
+
+
+def check_train_functions():
+    """Phase 9 (i): FlashAttentionFn and SSDScanFn at the zamba2-1.2b
+    shapes: forward equal to the raw kernel's, gradients equal to the plain
+    version's autograd on the card, bit for bit (the same recompute); a raw
+    wrapper given an input that requires grad raises.  Times the forward
+    and the backward (the plain recompute and its VJP) apart."""
+    q, k, v = flash_inputs(4, 2048, 32, 32, 64, torch.bfloat16, seed=30)
+    g = flash_inputs(4, 2048, 32, 32, 64, torch.bfloat16, seed=31)[0]
+    ins = ssd_inputs(4, 2048, 64, 64, 64, seed=32)
+    gy = ssd_inputs(4, 2048, 64, 64, 64, seed=33)[0]
+    cases = (("flash_attention", lambda *a: FlashAttentionFn.apply(*a, True,
+                                                                   None),
+              flash_attention_ref, flash_attention, (q, k, v), g),
+             ("ssd_scan", lambda *a: SSDScanFn.apply(*a, 256),
+              lambda *a: ssd_chunked_ref(*a, 256), ssd_scan, ins, gy))
+    for name, fn, plain, raw, inputs, cot in cases:
+        out, got = grads_of(fn, inputs, cot)
+        with torch.no_grad():
+            want_out = raw(*inputs)
+        outs = out if isinstance(out, tuple) else (out,)
+        wants = want_out if isinstance(want_out, tuple) else (want_out,)
+        if not all(torch.equal(a, b) for a, b in zip(outs, wants)):
+            raise AssertionError(f"{name}: the Function's forward differs "
+                                 f"from the raw kernel's")
+        _, want = grads_of(plain, inputs, cot)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: the Function's gradients differ "
+                                 f"from the plain version's autograd")
+        try:
+            raw(inputs[0].detach().clone().requires_grad_(True),
+                *inputs[1:])
+        except RuntimeError as e:
+            if "requires grad" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name}: the raw wrapper took an input "
+                                 f"that requires grad")
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+
+        def fwd_bwd():
+            out = fn(*leaves)
+            torch.autograd.grad(out[0] if isinstance(out, tuple) else out,
+                                leaves, cot)
+        fwd = time_ms(lambda: fn(*inputs), runs=1)
+        both = time_ms(fwd_bwd, runs=1)
+        log(f"{name} autograd Function at the zamba2-1.2b shape: forward "
+            f"equal to the raw kernel's, {len(got)} gradients equal to the "
+            f"plain version's autograd bit for bit, the raw wrapper refuses "
+            f"an input that requires grad; forward {fwd:.3f} ms, forward + "
+            f"backward {both:.3f} ms (the backward, the plain recompute, "
+            f"{both - fwd:.3f} ms)")
+        del out, got, want
+
+
+def reduced_training():
+    """Phase 9 (ii): reduced smollm-360m and zamba2-1.2b, 3 steps on the
+    card (kernels) and on the CPU (plain versions) from one state and the
+    same batches: each step's loss within TRAIN_RTOL."""
+    for arch in ("smollm-360m", "zamba2-1.2b"):
+        cfg = kernel_cfg(get_reduced(arch))
+        cpu = init_train_state(cfg, seed=0, device="cpu")
+        gpu = topt.tree_map(lambda t: t.to(DEV), cpu)
+        step = make_train_step(cfg, topt.OptimizerConfig(**TRAIN_OPT))
+        data = SyntheticLM(DataConfig(seq_len=64, global_batch=4,
+                                      vocab=cfg.vocab, seed=0))
+        rows = []
+        for i in range(3):
+            batch = data.batch_at(i)
+            cpu, mc = step(cpu, to_device(batch, "cpu"))
+            gpu, mg = step(gpu, to_device(batch, DEV))
+            lc, lg = float(mc["loss"]), float(mg["loss"])
+            if not abs(lg - lc) <= TRAIN_RTOL * abs(lc):
+                raise AssertionError(f"reduced {arch} step {i}: loss {lg} on "
+                                     f"the card, {lc} on the CPU")
+            rows.append(f"{lg:.6f}/{lc:.6f}")
+        log(f"reduced {arch} training, 3 steps B=4 S=64, card (kernels) / "
+            f"CPU (plain versions) losses {', '.join(rows)}: within rtol "
+            f"{TRAIN_RTOL}")
+
+
+def resume_check():
+    """Phase 9 (iii): launch.train on reduced zamba2 with a checkpoint
+    every 2 steps; its step_4 removed, a rerun restores step_2 and runs
+    steps 3-4: final state bit-identical to the uninterrupted run's."""
+    with tempfile.TemporaryDirectory() as d:
+        argv = ["--reduced", "--arch", "zamba2-1.2b", "--steps", "4",
+                "--batch", "4", "--seq", "64", "--log-every", "1",
+                "--ckpt-dir", d, "--ckpt-every", "2"]
+        full = train_cli.main(argv)
+        step4 = os.path.join(d, "step_4")
+        for f in os.listdir(step4):
+            os.remove(os.path.join(step4, f))
+        os.rmdir(step4)
+        resumed = train_cli.main(argv)
+    if resumed["start_step"] != 2 or not equal_trees(full["state"],
+                                                     resumed["state"]):
+        raise AssertionError("resumed reduced zamba2 differs from the "
+                             "uninterrupted run")
+    if resumed["losses"] != full["losses"][2:]:
+        raise AssertionError("resumed losses differ")
+    log(f"reduced zamba2 checkpoint at step 2, restored, steps 3-4: final "
+        f"state bit-identical to the uninterrupted 4 steps (losses "
+        f"{', '.join(f'{x:.6f}' for x in full['losses'])})")
+
+
+def train_steps(cfg, batches):
+    """init_train_state(seed=0), then one train step a batch, each timed
+    on the host clock to its end: (final state, [(loss, grad norm, ms,
+    launches)], peak device memory, the memory held before the state was
+    drawn)."""
+    step = make_train_step(cfg, topt.OptimizerConfig(total_steps=4))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = init_train_state(cfg, seed=0, device=DEV)
+    rows = []
+    reset_launch_counts()
+    for b in batches:
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append((loss, gn, ms, {k: LAUNCHES[k] - before[k]
+                                    for k in ("flash_attention",
+                                              "ssd_scan")}))
+    return state, rows, torch.cuda.max_memory_allocated(), base
+
+
+def full_width_training(B=4, S=2048, n_steps=4):
+    """Phase 9 (iv): zamba2-1.2b as published, batch 4 x 2048, remat on,
+    AdamW, SyntheticLM(seed 0), 4 steps from init_train_state(seed=0):
+    12 flash_attention and 76 ssd_scan launches a step (forward and remat
+    rerun), finite loss and grad norm, step ms (median of steps 2-4),
+    tokens/s and peak memory; one step with impl 'ref' from the same
+    state (loss within TRAIN_RTOL); a second run bit-identical."""
+    cfg = kernel_cfg(get_config("zamba2-1.2b"))
+    assert cfg.remat
+    data = SyntheticLM(DataConfig(seq_len=S, global_batch=B,
+                                  vocab=cfg.vocab, seed=0))
+    batches = [to_device(data.batch_at(i), DEV) for i in range(n_steps)]
+    n_apps = cfg.n_layers // cfg.attn_every
+    want = {"flash_attention": 2 * n_apps, "ssd_scan": 2 * cfg.n_layers}
+    state, rows, peak, base = train_steps(cfg, batches)
+    counts = dict(LAUNCHES)
+    for i, (loss, gn, ms, got) in enumerate(rows):
+        if got != want:
+            raise AssertionError(f"full-width step {i}: launches {got}, "
+                                 f"want {want}")
+        if not (np.isfinite(loss) and np.isfinite(gn)):
+            raise AssertionError(f"full-width step {i}: loss {loss}, grad "
+                                 f"norm {gn}")
+    med = statistics.median(ms for _, _, ms, _ in rows[1:])
+    log(f"zamba2-1.2b training B={B} S={S}, remat, AdamW: step ms "
+        f"{', '.join(f'{r[2]:.1f}' for r in rows)} (median of steps 2-"
+        f"{n_steps} {med:.1f} ms, {B * S / med * 1e3:.1f} tokens/s), peak "
+        f"device memory {peak / 2**30:.3f} GiB ({base / 2**30:.3f} GiB held "
+        f"before the state was drawn), losses "
+        f"{', '.join(f'{r[0]:.6f}' for r in rows)}, grad norms "
+        f"{', '.join(f'{r[1]:.6f}' for r in rows)}; launches a step {want}")
+    params = state.params
+    del state
+
+    ref_cfg = dataclasses.replace(cfg, attn_impl="ref", ssm_impl="ref")
+    ref_state, ref_rows, ref_peak, _ = train_steps(ref_cfg, batches[:1])
+    del ref_state
+    (rl, rg, rms, rgot), l0 = ref_rows[0], rows[0][0]
+    if any(rgot.values()) or not abs(rl - l0) <= TRAIN_RTOL * abs(l0):
+        raise AssertionError(f"full-width impl 'ref' step: loss {rl} against "
+                             f"{l0}, launches {rgot}")
+    log(f"zamba2-1.2b one step with impl 'ref' from the same state: loss "
+        f"{rl:.6f} against the kernels' {l0:.6f} (rtol {TRAIN_RTOL}), grad "
+        f"norm {rg:.6f} against {rows[0][1]:.6f}, {rms:.1f} ms, peak "
+        f"{ref_peak / 2**30:.3f} GiB")
+
+    state2, rows2, _, _ = train_steps(cfg, batches)
+    if [r[:2] for r in rows2] != [r[:2] for r in rows] or \
+            not equal_trees(state2.params, params):
+        raise AssertionError("second full-width training run differs")
+    log(f"zamba2-1.2b second training run: losses, grad norms and final "
+        f"parameters bit-identical (step ms "
+        f"{', '.join(f'{r[2]:.1f}' for r in rows2)})")
+    return counts
+
+
+def train_phase():
+    t0 = time.time()
+    check_train_functions()
+    reduced_training()
+    resume_check()
+    counts = full_width_training()
+    log(f"phase 9 wall time {time.time() - t0:.1f} s")
     return counts
 
 
@@ -2097,6 +2346,8 @@ def main():
     reduced_families()
     lm_counts = full_width_serve()
     for k, v in families_phase().items():
+        lm_counts[k] += v
+    for k, v in train_phase().items():
         lm_counts[k] += v
     check_waterfill_launches(real_net, 2000)
     check_fw_launches()

@@ -10,9 +10,11 @@ either package restores in the other, leaf for leaf.
 
 The JAX package's ``restore_checkpoint(..., shardings=)`` re-shards the
 restored leaves onto a JAX device mesh; the port has no mesh yet, so the
-argument is absent here (it comes with the training slice's sharding
-module).  A restored leaf is a numpy array, or a torch tensor on the
-device of the matching leaf of ``state_like`` when that is one.
+argument is absent here (it comes with the port's sharding module).  A
+restored leaf is a numpy array, or a torch tensor on the device of the
+matching leaf of ``state_like`` when that is one.  The training loop
+(``launch/train.py``) saves and restores its ``TrainState`` here, and a
+``TrainState`` the JAX package wrote restores into the port's.
 """
 from __future__ import annotations
 

@@ -5,9 +5,8 @@ Python, its own copy).
 The multi-process sweep fabric (``repro_torch.launch.dist``) feeds each
 worker's slab request cadence to :class:`StragglerDetector`; the monitor,
 the recovery plan and their state machine (suspect -> dead -> recover)
-are the JAX package's, answer for answer.  ``TrainingSupervisor`` (the
-training loop's checkpoint and restart glue) comes with the training
-slice of the port.
+are the JAX package's, answer for answer.  ``TrainingSupervisor`` is the
+training loop's checkpoint and restart glue (``launch/train.py``).
 """
 from __future__ import annotations
 
@@ -117,3 +116,30 @@ def plan_recovery(monitor: HeartbeatMonitor, n_pods: int,
                 lost_workers=tuple(dead), new_multi_pod=False)
     return RecoveryPlan("restart", reason=f"{len(dead)} workers dead",
                         lost_workers=tuple(dead))
+
+
+class TrainingSupervisor:
+    """Glue used by launch/train.py: step loop + checkpoint cadence +
+    recovery hooks.  Deterministic data pipeline (per-step index seeding)
+    makes post-restore replay exact."""
+
+    def __init__(self, cfg: FaultConfig, ckpt_every: int,
+                 save_fn: Callable[[int], None],
+                 restore_fn: Callable[[], int]):
+        self.cfg = cfg
+        self.ckpt_every = ckpt_every
+        self.save_fn = save_fn
+        self.restore_fn = restore_fn
+        self.restarts = 0
+
+    def maybe_checkpoint(self, step: int) -> bool:
+        if step > 0 and step % self.ckpt_every == 0:
+            self.save_fn(step)
+            return True
+        return False
+
+    def recover(self) -> int:
+        if self.restarts >= self.cfg.max_restarts:
+            raise RuntimeError("restart budget exhausted")
+        self.restarts += 1
+        return self.restore_fn()

@@ -11,6 +11,11 @@ their f32 values (within the f32 contract) straddle a rounding boundary;
 the second ulp is margin, and the atol covers elements near zero, whose
 ulp is finer than f32's summation error.  A variant that rounds p or the
 PV accumulator to bf16 misses this limit by 30-130x on the tests' shapes.
+
+The kernel computes the forward only, and the raw wrapper refuses an
+input that requires grad (``kernels.check_no_grad``).  The model trains
+through :class:`FlashAttentionFn`, whose backward recomputes the plain
+version, as the JAX package's ``custom_vjp`` op does.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, check_cuda_tensor
+from repro_torch.kernels import LAUNCHES, check_cuda_tensor, check_no_grad
 
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's template instances
 WGMMA_HEAD_DIMS = (64, 128)     # the tensor-core variant's, on bf16
@@ -83,6 +88,7 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
     variant :func:`variant` names for the type and D, one CUDA launch."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal, scale)
+    check_no_grad("flash_attention", q=q, k=k, v=v)
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     if q.dtype not in (torch.bfloat16, torch.float32):
@@ -106,3 +112,27 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     LAUNCHES["flash_attention"] += 1
     return o
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` with a backward, the counterpart of the JAX
+    package's ``custom_vjp`` op (``repro/kernels/flash_attention/ops.py``):
+    the forward is the wrapper (the kernel on CUDA tensors, the plain
+    version on CPU ones); the backward recomputes
+    :func:`flash_attention_ref` from the saved q, k, v and returns its
+    VJP, so the gradients are the plain version's autograd bit for bit.
+    ``FlashAttentionFn.apply(q, k, v, causal, scale)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, scale=None):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return flash_attention(q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            out = flash_attention_ref(*ins, ctx.causal, ctx.scale)
+            grads = torch.autograd.grad(out, ins, g)
+        return (*grads, None, None)

@@ -6,6 +6,12 @@ CPU tensors.  The plain version repeats the TPU kernel's f32 chunk
 recurrence; it is not the model's ``ssd_chunked_ref``, whose einsums round
 their operands to bf16.  Contract against the plain version: rtol/atol
 1e-4 (exp and summation order).
+
+The kernel computes the forward only, and the raw wrapper refuses an
+input that requires grad (``kernels.check_no_grad``).  The model trains
+through :class:`SSDScanFn`, whose backward recomputes the model's
+reference ``ssd_chunked_ref``, as the JAX package's ``custom_vjp`` op
+does.
 """
 from __future__ import annotations
 
@@ -13,7 +19,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, check_cuda_tensor
+from repro_torch.kernels import LAUNCHES, check_cuda_tensor, check_no_grad
 
 MAX_HEAD_DIM = 64   # P: one 64-column output tile per thread block
 MAX_CHUNK = 256     # Q: at most four 64-row q tiles per chunk
@@ -82,6 +88,7 @@ def ssd_scan(xs, Bm, Cm, dt, A_log, Q: int = 256):
     here."""
     if xs.device.type == "cpu":
         return ssd_scan_ref(xs, Bm, Cm, dt, A_log, Q)
+    check_no_grad("ssd_scan", xs=xs, Bm=Bm, Cm=Cm, dt=dt, A_log=A_log)
     B, S, H, P = xs.shape
     N = Bm.shape[-1]
     Q = min(Q, S)
@@ -112,13 +119,41 @@ def ssd_scan(xs, Bm, Cm, dt, A_log, Q: int = 256):
     return y, h
 
 
+class SSDScanFn(torch.autograd.Function):
+    """:func:`ssd_scan` with a backward, the counterpart of the JAX
+    package's ``custom_vjp`` op (``repro/kernels/ssd_scan/ops.py``): the
+    forward is the wrapper (the kernel on CUDA tensors, the plain version
+    on CPU ones); the backward recomputes the model's reference
+    ``models.ssm.ssd_chunked_ref`` from the saved inputs and returns its
+    VJP to all five of xs, Bm, Cm, dt and A_log.  An output nobody used
+    (h_final, in the model) brings no gradient and is left out of it.
+    ``SSDScanFn.apply(xs, Bm, Cm, dt, A_log, Q) -> (y, h_final)``."""
+
+    @staticmethod
+    def forward(ctx, xs, Bm, Cm, dt, A_log, Q=256):
+        ctx.save_for_backward(xs, Bm, Cm, dt, A_log)
+        ctx.Q = Q
+        ctx.set_materialize_grads(False)
+        return ssd_scan(xs.contiguous(), Bm.contiguous(), Cm.contiguous(),
+                        dt.contiguous(), A_log.contiguous(), Q)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        from repro_torch.models.ssm import ssd_chunked_ref
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            outs, gouts = zip(*[(o, g) for o, g in zip(
+                ssd_chunked_ref(*ins, ctx.Q), (gy, gh)) if g is not None])
+            grads = torch.autograd.grad(outs, ins, gouts)
+        return (*grads, None)
+
+
 def ssd_chunked(xs, Bm, Cm, dt, A_log, Q: int = 256, h0=None):
     """The model's kernel-backed SSD, as the JAX package's
     ``ssd_scan/ops.ssd_chunked``: a carried-in state ``h0`` goes to the
-    model's reference ``ssd_chunked_ref``; the zero-state prefill, the hot
-    path, goes to :func:`ssd_scan`."""
+    model's reference ``ssd_chunked_ref``; the zero-state prefill and the
+    training forward, the hot path, go to :class:`SSDScanFn`."""
     if h0 is not None:
         from repro_torch.models.ssm import ssd_chunked_ref
         return ssd_chunked_ref(xs, Bm, Cm, dt, A_log, Q, h0=h0)
-    return ssd_scan(xs.contiguous(), Bm.contiguous(), Cm.contiguous(),
-                    dt.contiguous(), A_log.contiguous(), Q)
+    return SSDScanFn.apply(xs, Bm, Cm, dt, A_log, Q)

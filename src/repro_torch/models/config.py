@@ -59,7 +59,7 @@ class ModelConfig:
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
-    remat: bool = True       # JAX-only (checkpointing): unused here
+    remat: bool = True       # training: torch.utils.checkpoint a layer
     scan_layers: bool = True  # JAX-only (lax.scan vs unroll): unused here
     attn_impl: str = "ref"   # ref | kernel (flash_attention CUDA kernel)
     ssm_impl: str = "ref"    # ref | kernel (ssd_scan CUDA kernel)

@@ -10,7 +10,12 @@ every use (``embed``, ``unembed``, ``wq/wk/wv/wo``, the QKV biases,
 ``out_proj``, the MoE ``router`` and MLA's ``w_dq/w_uq/w_dkv/w_uk/w_uv``;
 ``transformer.BF16_LEAVES``) are stored in bf16 once, which is exact
 because the cast is the same rounding; every other leaf (norm weights,
-``conv_w``/``conv_b``, ``A_log``, ``D``, ``dt_bias``) stays f32.
+``conv_w``/``conv_b``, ``A_log``, ``D``, ``dt_bias``) stays f32.  With
+``masters=True`` every leaf stays f32, as training needs.
+
+``train_state_from_jax`` carries a whole JAX ``TrainState`` (parameters,
+AdamW's m and v, the step) across, so that both packages can train from
+one state.
 """
 from __future__ import annotations
 
@@ -30,9 +35,29 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def params_from_jax(tree, cfg: ModelConfig, device=None):
+def params_from_jax(tree, cfg: ModelConfig, device=None,
+                    masters: bool = False):
     """The port's parameter tree for ``cfg`` from JAX's ``tree`` (nested
-    dicts of numpy arrays)."""
+    dicts of numpy arrays): the ``BF16_LEAVES`` in bf16, or every leaf in
+    f32 with ``masters`` (the f32 masters AdamW updates)."""
     check_supported(cfg)
     device = resolve_device(device)
-    return cast_bf16_leaves(map_leaves(lambda a: _tensor(a, device), tree))
+    params = map_leaves(lambda a: _tensor(a, device), tree)
+    return params if masters else cast_bf16_leaves(params)
+
+
+def train_state_from_jax(state, cfg: ModelConfig, device=None):
+    """The port's ``TrainState`` from a JAX ``TrainState`` of numpy arrays
+    (``jax.tree.map(np.asarray, state)``; read by its fields ``params``
+    and ``opt.m``, ``opt.v``, ``opt.step``): f32 master parameters, m and
+    v in f32 and the int32 step, leaf for leaf."""
+    from repro_torch.train.optimizer import OptState
+    from repro_torch.train.step import TrainState
+    device = resolve_device(device)
+    to = lambda tree: map_leaves(lambda a: _tensor(a, device), tree)
+    opt = state.opt
+    return TrainState(
+        params=params_from_jax(state.params, cfg, device, masters=True),
+        opt=OptState(m=to(opt.m), v=to(opt.v),
+                     step=torch.tensor(int(np.asarray(opt.step)),
+                                       dtype=torch.int32, device=device)))

@@ -9,7 +9,8 @@ bf16 operands and contracts in f32: the products are exact, only the
 summation order differs.  ``x @ W`` with both operands bf16 is bf16 in both
 packages.  Attention has two implementations selected by ``impl``:
 ``"ref"`` (the einsum reference) and ``"kernel"`` (the flash-attention
-kernel in ``repro_torch/kernels``).
+kernel in ``repro_torch/kernels``, through ``FlashAttentionFn``, whose
+backward recomputes the kernel's plain version).
 """
 from __future__ import annotations
 
@@ -103,8 +104,8 @@ def attention(q, k, v, *, impl: str = "ref", causal: bool = True,
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if impl == "kernel" and q.shape[1] > 1 and kv_valid_len is None:
-        from repro_torch.kernels.flash_attention import flash_attention
-        return flash_attention(q, k, v, causal=causal, scale=scale)
+        from repro_torch.kernels.flash_attention import FlashAttentionFn
+        return FlashAttentionFn.apply(q, k, v, causal, scale)
     return attention_ref(q, k, v, causal=causal, q_offset=q_offset,
                          kv_valid_len=kv_valid_len, scale=scale)
 

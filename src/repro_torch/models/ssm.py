@@ -80,6 +80,23 @@ def _causal_conv(params, xBC, cfg, conv_state=None):
     return tF.silu(out + params["conv_b"]), new_state
 
 
+def _cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cumsum`` along ``dim``, except on a CUDA tensor in
+    deterministic mode, where ``torch.cumsum`` has no deterministic
+    implementation and raises: there, an inclusive scan of log2(n) shifted
+    adds (Hillis-Steele), whose order is fixed and whose backward is the
+    same adds in reverse."""
+    if x.device.type != "cuda" or \
+            not torch.are_deterministic_algorithms_enabled():
+        return torch.cumsum(x, dim)
+    n, shift = x.shape[dim], 1
+    while shift < n:
+        zeros = torch.zeros_like(x.narrow(dim, 0, shift))
+        x = x + torch.cat([zeros, x.narrow(dim, 0, n - shift)], dim)
+        shift *= 2
+    return x
+
+
 def ssd_chunked_ref(xs, Bm, Cm, dt, A_log, Q: int, h0=None):
     """Chunked SSD.  xs [B,S,H,P], Bm/Cm [B,S,N], dt [B,S,H], A_log [H].
 
@@ -104,14 +121,20 @@ def ssd_chunked_ref(xs, Bm, Cm, dt, A_log, Q: int, h0=None):
     C_c = Cm.reshape(B, Cn, Q, N)
     dt_c = dt.reshape(B, Cn, Q, H)
     al_c = a_log.reshape(B, Cn, Q, H)
-    cum = torch.cumsum(al_c, dim=2)                           # [B,Cn,Q,H]
+    cum = _cumsum(al_c, dim=2)                                # [B,Cn,Q,H]
 
     # ---- intra-chunk quadratic (dual) term --------------------------------
     G = torch.einsum("bcqn,bcsn->bcqs", _bf(C_c), _bf(B_c))    # [B,Cn,Q,Q]
     decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # [B,Cn,Q,S,H]
-    causal = torch.ones((Q, Q), dtype=torch.bool, device=xs.device).tril()
-    L = torch.where(causal[None, None, :, :, None], torch.exp(decay),
-                    torch.zeros((), dtype=F32, device=xs.device))
+    causal = torch.ones((Q, Q), dtype=torch.bool,
+                        device=xs.device).tril()[None, None, :, :, None]
+    # exp of the masked decay: above the diagonal the decay is positive,
+    # and where it passes ~88 exp overflows to inf, whose VJP through the
+    # where is 0 * inf = NaN (the JAX reference's gradient, at a chunk
+    # whose decays spread that far: zamba2-1.2b at its published Q = 256)
+    zero = torch.zeros((), dtype=F32, device=xs.device)
+    L = torch.where(causal, torch.exp(torch.where(causal, decay, zero)),
+                    zero)
     M = G[..., None] * L * dt_c[:, :, None, :, :]             # [B,Cn,Q,Q,H]
     y_intra = torch.einsum("bcqsh,bcshp->bcqhp", _bf(M), _bf(xs_c))
 

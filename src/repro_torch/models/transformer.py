@@ -4,23 +4,26 @@ The PyTorch counterpart of the JAX package's ``models/transformer.py``:
 one parameter tree and the entry points
 
 * ``forward_train`` — full causal forward, returns (hidden, aux_loss)
-  (forward only here: the tests compare it, no trainer runs it yet);
+  (``train/step.py`` differentiates it);
 * ``prefill``       — forward that also returns the per-layer cache;
 * ``decode_step``   — one-token step against the cache.
 
 Layer parameters are stacked ([L, ...] leaves, under the JAX names) and a
 Python loop walks the layers where the JAX code scans them; deepseek's
 leading dense layers live apart (``params["first_blocks"]``,
-``cache["first"]``), as there.  The port runs on one card: no mesh,
-sharding or remat, and the moe layer is the single-card capacity dispatch
-(``models/moe.py``).  MLA runs the reference attention only
-(``check_supported``).
+``cache["first"]``), as there.  With ``cfg.remat``, a training forward
+under grad mode runs each layer body under ``torch.utils.checkpoint``,
+as the JAX code wraps its scan body in ``jax.checkpoint``.  The port runs
+on one card: no mesh or sharding, and the moe layer is the single-card
+capacity dispatch (``models/moe.py``).  MLA runs the reference attention
+only (``check_supported``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import resolve_device
 from repro_torch.models import mla as mla_mod
@@ -58,6 +61,28 @@ def map_leaves(fn, tree):
 
 def _layer(tree, i: int):
     return map_leaves(lambda a: a[i], tree)
+
+
+def _unstack(tree):
+    """The per-layer trees of a stacked [L, ...] tree, as views from one
+    ``torch.unbind`` a leaf: in the backward, one node stacks the L
+    layers' gradients, where a per-layer index would add a full [L, ...]
+    gradient for each layer."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def _maybe_remat(fn, cfg):
+    """``fn`` under ``torch.utils.checkpoint`` when ``cfg.remat`` and grad
+    mode is on (the JAX package's ``jax.checkpoint(policy=
+    nothing_saveable)`` on the scan body): the layer keeps its inputs, and
+    the backward reruns its forward, kernels included."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
 def _stack(trees):
@@ -110,37 +135,42 @@ def _block_kinds(cfg: ModelConfig) -> Tuple[str, str, int]:
     return "dense", "dense", 0
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                masters: bool = False) -> Params:
     """Random parameters drawn from a ``torch.Generator`` seeded by
     ``seed`` on ``device`` (the draws differ from ``jax.random``'s: a test
     that compares the packages converts JAX's tree with
     ``convert.params_from_jax``).  Layer leaves are stacked [L, ...];
-    the ``BF16_LEAVES`` are stored in bf16, every other leaf in f32."""
+    the ``BF16_LEAVES`` are stored in bf16, every other leaf in f32 —
+    or, with ``masters`` (training: AdamW updates f32 masters, as the JAX
+    package's leaves are), every leaf in f32.  Each use casts to bf16, so
+    a bf16 tree serves as its f32 masters do."""
     device = resolve_device(device)
     first_kind, kind, n_first = _block_kinds(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d, Vp = cfg.d_model, cfg.vocab_padded
+    cast = (lambda t: t) if masters else cast_bf16_leaves
+    store = F32 if masters else BF16
 
     def stack(kind, n):
         # cast each layer as it is drawn: the f32 copy of the whole stack
         # is never held at once
-        return _stack([cast_bf16_leaves(_init_block(cfg, gen, kind, device))
+        return _stack([cast(_init_block(cfg, gen, kind, device))
                        for _ in range(n)])
 
     params: Params = {
         "embed": (torch.randn((Vp, d), generator=gen, dtype=F32,
-                              device=device) * 0.02).to(BF16),
+                              device=device) * 0.02).to(store),
         "final_norm": torch.ones((d,), dtype=F32, device=device),
         "unembed": (torch.randn((d, Vp), generator=gen, dtype=F32,
-                                device=device) * d ** -0.5).to(BF16),
+                                device=device) * d ** -0.5).to(store),
         "blocks": stack(kind, cfg.n_layers - n_first),
     }
     if n_first:
         params["first_blocks"] = stack(first_kind, n_first)
     if cfg.family == "hybrid":
-        params["shared_attn"] = cast_bf16_leaves(
-            _init_block(cfg, gen, "dense", device))
+        params["shared_attn"] = cast(_init_block(cfg, gen, "dense", device))
     return params
 
 
@@ -219,6 +249,17 @@ def _run_stack(cfg, params, x, positions, *, mode, cache=None,
 
     aux_total = torch.zeros((), dtype=F32, device=x.device)
     new_cache: Dict[str, Any] = {}
+    if mode == "train":
+        for blocks, k in (("first_blocks", first_kind), ("blocks", kind)):
+            if blocks not in params:
+                continue
+            body = _maybe_remat(
+                lambda p, h, k=k: _dense_block(p, h, cfg, positions,
+                                               kind=k)[::2], cfg)
+            for p in _unstack(params[blocks]):
+                x, aux = body(p, x)
+                aux_total = aux_total + aux
+        return x, new_cache, aux_total
     for key, blocks, n, k in (("first", "first_blocks", n_first, first_kind),
                               ("layers", "blocks", cfg.n_layers - n_first,
                                kind)):
@@ -230,7 +271,7 @@ def _run_stack(cfg, params, x, positions, *, mode, cache=None,
                                      cache_len=cache_len, kind=k)
             aux_total = aux_total + aux
             kvs.append(c)
-        if not n or mode == "train":
+        if not n:
             continue
         new_cache[key] = (cache[key] if mode == "decode"    # in place
                           else _stack(kvs))
@@ -241,7 +282,9 @@ def _run_ssm_stack(cfg, params, x, positions, *, mode, cache, cache_len):
     """Mamba2 stack; zamba2 interleaves one *shared* attention block every
     ``attn_every`` layers (its own KV cache per application).
 
-    * train:   no caches carried at all;
+    * train:   no caches carried at all; a layer body (the Mamba2 block,
+      and the shared attention after it where it fires) is the remat
+      unit, as the JAX scan body is;
     * prefill: attention runs causal (cache=None path) and its fresh (k, v)
       is written into the application's slot of the attention cache;
     * decode:  attention reads/updates the application's cache slice, and
@@ -251,9 +294,20 @@ def _run_ssm_stack(cfg, params, x, positions, *, mode, cache, cache_len):
     decode = mode == "decode" and x.shape[1] == 1
     ssm_mode = "decode" if decode else "train"
     B, S = x.shape[:2]
+    if mode == "train":
+        def body(p, h, i):
+            h, _ = _ssm_res_block(p, h, cfg)
+            if hybrid and i % cfg.attn_every == cfg.attn_every - 1:
+                h, _, _ = _dense_block(params["shared_attn"], h, cfg,
+                                       positions)
+            return h
+        body = _maybe_remat(body, cfg)
+        for i, p in enumerate(_unstack(params["blocks"])):
+            x = body(p, x, i)
+        return x, {}, torch.zeros((), dtype=F32, device=x.device)
 
     attn_cache = None
-    if hybrid and mode != "train":
+    if hybrid:
         attn_cache = (cache["attn"] if cache is not None else
                       _hybrid_attn_cache(cfg, B, S, cfg.n_attn_applications,
                                          x.device))
@@ -273,14 +327,12 @@ def _run_ssm_stack(cfg, params, x, positions, *, mode, cache, cache_len):
             else:
                 x, c_new, _ = _dense_block(params["shared_attn"], x, cfg,
                                            positions)
-            if mode != "train" and not decode:
+            if not decode:
                 for full, one in zip(attn_cache, c_new):
                     full[app_idx] = one.to(full.dtype)
             app_idx += 1
 
     new_cache: Dict[str, Any] = {}
-    if mode == "train":
-        return x, new_cache, torch.zeros((), dtype=F32, device=x.device)
     if cache is not None:
         for full, one in zip(cache["ssm"], zip(*states)):
             for i, s in enumerate(one):
