@@ -181,6 +181,26 @@ Phases, in order, each of which fails the script when it fails:
      its ms, the median of steps 2-4, tokens/s and peak memory; one step
      with impl 'ref' from the same state (loss within rtol 1e-3); a
      second run: losses, grad norms and final parameters bit-identical;
+  10. training the moe family and MLA, and the mesh path (after phase 9,
+     its wall time printed): (i) reduced olmoe-1b-7b (kernels) and
+     deepseek-v2-236b (MLA: impl 'ref'), batch 4 x 64, 3 AdamW steps on
+     the card and on the CPU from one state, the card's routing held to
+     the CPU run's (the first step at moe.NEAR_TIE_ULPS, later ones at
+     STEP_TIE_ULPS: after AdamW's first update the runs' parameters
+     differ), each loss within rtol 1e-3, 2 flash_attention launches a
+     layer a step, a second card run bit-identical; (ii) olmoe-1b-7b at
+     its published widths cut to 4 of 16 layers (one card's 80 GB),
+     batch 4 x 2048, remat, AdamW on f32 masters, SyntheticLM(seed 0), 4
+     steps from init_train_state(seed=0), launch counts reset before step
+     1 (8 flash_attention launches a step), step ms (median of steps
+     2-4), tokens/s, peak memory and the share of assignments dropped at
+     capacity printed, a second run bit-identical; (iii) MESH_WORKERS
+     (2) processes sharing the card over gloo (NCCL refuses two ranks on
+     one device; each is this script run with --mesh-worker), reduced
+     olmoe on the (1, 2) mesh with moe_impl 'psum' and 'a2a': the
+     gradient (every leaf within 8 bf16 ulps of its largest magnitude,
+     cosine >= 0.999) and 2 steps' losses (rtol 1e-3) on the card against
+     the same mesh's run with the state on the CPU;
   8. seg_waterfill's device events per call of each variant at F = 12000
      under torch.profiler (20 calls each), with each event's device time:
      the shared-memory variant must be one kernel and no memset, the
@@ -189,10 +209,10 @@ Phases, in order, each of which fails the script when it fails:
      no profiler session precedes the timed phases).
 The last lines are the script's wall time, the card's name and power
 limit, one JSON line of kernel measurements (flash_attention's and
-ssd_scan's launches: phases 7, 7a and 9 (iv) summed; seg_waterfill's and
-fw_minplus's: phase 5's), and
-the result line.  Imports torch and repro_torch
-only.  Exits non-zero without a CUDA device.
+ssd_scan's launches: phases 7, 7a, 9 (iv) and 10 (ii) summed;
+seg_waterfill's and fw_minplus's: phase 5's), and the result line.
+Imports torch and repro_torch only.  Exits non-zero without a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -1500,6 +1520,270 @@ def train_phase():
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: training the moe family and MLA; the mesh path
+# ---------------------------------------------------------------------------
+# a later step's routing, card against CPU: after AdamW's first update
+# (about +-lr an element) the two runs' parameters differ where a gradient
+# element is near zero, and router logits move by more than a near tie of
+# summation order (tests/test_torch_train_moe.py measures 11.4 ulps)
+STEP_TIE_ULPS = 16
+GRAD_ULPS = 8        # a gradient leaf, card against CPU (bf16 ulps of max)
+MESH_WORKERS = 2
+
+
+def moe_train_run(cfg, batches, device, routes=None):
+    """3 AdamW steps from init_train_state(seed=0) (drawn on the CPU) on
+    ``device``: (final params, losses, each step's routing, replayed
+    positions a step, flash_attention launches a step).  With ``routes``
+    each step's routing is held to that run's (the first at
+    moe.NEAR_TIE_ULPS, the later ones at STEP_TIE_ULPS)."""
+    state = topt.tree_map(lambda t: t.to(device),
+                          init_train_state(cfg, seed=0, device="cpu"))
+    step = make_train_step(cfg, topt.OptimizerConfig(**TRAIN_OPT))
+    losses, got, replaced, launches = [], [], [], []
+    for i, b in enumerate(batches):
+        before = LAUNCHES["flash_attention"]
+        with moe_mod.log_routing(
+                replay=None if routes is None else routes[i],
+                tie_ulps=moe_mod.NEAR_TIE_ULPS if i == 0
+                else STEP_TIE_ULPS) as log:
+            state, m = step(state, to_device(b, device))
+        losses.append(float(m["loss"]))
+        got.append(log.topi)
+        replaced.append(sum(log.replaced))
+        launches.append(LAUNCHES["flash_attention"] - before)
+    return state.params, losses, got, replaced, launches
+
+
+def reduced_moe_training():
+    """Phase 10 (i): reduced olmoe-1b-7b (kernels) and deepseek-v2 (MLA:
+    impl 'ref'), batch 4 x 64, 3 steps on the card against the port's CPU
+    run from one state, the card's routing held to the CPU run's: each
+    loss within TRAIN_RTOL; a second card run bit-identical."""
+    for arch, impl in (("olmoe-1b-7b", "kernel"), ("deepseek-v2-236b",
+                                                   "ref")):
+        cfg = family_cfg(get_reduced(arch), impl)
+        data = SyntheticLM(DataConfig(seq_len=64, global_batch=4,
+                                      vocab=cfg.vocab, seed=0))
+        batches = [data.batch_at(i) for i in range(3)]
+        _, want, routes, _, _ = moe_train_run(cfg, batches, "cpu")
+        first = moe_train_run(cfg, batches, DEV, routes)
+        params, losses, _, replaced, launches = first
+        flash = 2 * cfg.n_layers if impl == "kernel" else 0
+        if launches != [flash] * 3:
+            raise AssertionError(f"reduced {arch} training launches "
+                                 f"{launches}, want {flash} a step")
+        for i, (g, c) in enumerate(zip(losses, want)):
+            if not abs(g - c) <= TRAIN_RTOL * abs(c):
+                raise AssertionError(f"reduced {arch} step {i}: loss {g} on "
+                                     f"the card, {c} on the CPU")
+        params2, losses2, _, _, _ = moe_train_run(cfg, batches, DEV, routes)
+        if losses2 != losses or not equal_trees(params, params2):
+            raise AssertionError(f"second reduced {arch} training run "
+                                 f"differs")
+        log(f"reduced {arch} ({impl}) training, 3 steps B=4 S=64, card / "
+            f"CPU losses "
+            f"{', '.join(f'{a:.6f}/{b:.6f}' for a, b in zip(losses, want))}"
+            f": within rtol {TRAIN_RTOL}; top-k positions replayed a step "
+            f"{replaced}; flash_attention launches a step {launches}; a "
+            f"second card run bit-identical")
+
+
+def full_width_moe_training(B=4, S=2048, n_layers=4, n_steps=4):
+    """Phase 10 (ii): olmoe-1b-7b at its published widths cut to
+    ``n_layers`` of 16 layers, batch 4 x 2048, remat, AdamW on f32
+    masters, SyntheticLM(seed 0), 4 steps from init_train_state(seed=0):
+    2 flash_attention launches a layer a step (forward and remat rerun),
+    finite losses, step ms (median of steps 2-4), tokens/s, peak memory,
+    the share of assignments dropped at capacity; a second run
+    bit-identical (its parameters held on the host meanwhile)."""
+    cfg = kernel_cfg(dataclasses.replace(get_config("olmoe-1b-7b"),
+                                         n_layers=n_layers))
+    assert cfg.remat
+    data = SyntheticLM(DataConfig(seq_len=S, global_batch=B,
+                                  vocab=cfg.vocab, seed=0))
+    batches = [to_device(data.batch_at(i), DEV) for i in range(n_steps)]
+    want = {"flash_attention": 2 * n_layers, "ssd_scan": 0}
+    with moe_mod.log_routing() as routes:
+        state, rows, peak, base = train_steps(cfg, batches)
+    counts = dict(LAUNCHES)
+    for i, (loss, gn, ms, got) in enumerate(rows):
+        if got != want or not (np.isfinite(loss) and np.isfinite(gn)):
+            raise AssertionError(f"olmoe-1b-7b step {i}: launches {got} "
+                                 f"(want {want}), loss {loss}, grad norm "
+                                 f"{gn}")
+    med = statistics.median(ms for _, _, ms, _ in rows[1:])
+    n_params = sum(t.numel() for t in topt.tree_leaves(state.params))
+    share = moe_mod.dropped_share(routes.drops)
+    log(f"olmoe-1b-7b training ({n_layers} of 16 layers, {n_params:.4e} "
+        f"parameters) B={B} S={S}, remat, AdamW: step ms "
+        f"{', '.join(f'{r[2]:.1f}' for r in rows)} (median of steps 2-"
+        f"{n_steps} {med:.1f} ms, {B * S / med * 1e3:.1f} tokens/s), peak "
+        f"device memory {peak / 2**30:.3f} GiB ({base / 2**30:.3f} GiB held "
+        f"before the state was drawn), dropped at capacity C = "
+        f"{moe_mod.capacity(B * S, cfg)}: {share:.6f} of "
+        f"{sum(int(a) for a, _ in routes.drops)} assignments over "
+        f"{len(routes.drops)} moe calls, losses "
+        f"{', '.join(f'{r[0]:.6f}' for r in rows)}, grad norms "
+        f"{', '.join(f'{r[1]:.6f}' for r in rows)}; launches a step {want}")
+    params = topt.tree_map(lambda t: t.cpu(), state.params)
+    del state
+    torch.cuda.empty_cache()
+    state2, rows2, _, _ = train_steps(cfg, batches)
+    same = [r[:2] for r in rows2] == [r[:2] for r in rows] and all(
+        torch.equal(a.cpu(), b) for a, b in zip(
+            topt.tree_leaves(state2.params), topt.tree_leaves(params)))
+    if not same:
+        raise AssertionError("second olmoe-1b-7b training run differs")
+    log(f"olmoe-1b-7b second training run: losses, grad norms and final "
+        f"parameters bit-identical (step ms "
+        f"{', '.join(f'{r[2]:.1f}' for r in rows2)})")
+    del state2, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mesh_worker(argv):
+    """One rank of phase 10 (iii) (``chip_smoke.py --mesh-worker RANK PORT
+    OUT``): reduced olmoe (kernels) on the (1, 2) mesh, ``moe_impl``
+    'psum' then 'a2a', over a gloo group of MESH_WORKERS ranks that share
+    the card: the gradient and 2 steps run once with the state on the
+    CPU and once on the card (the card's routing held to the CPU's), the
+    collectives staging the card's tensors through host memory.  Rank 0
+    writes the comparison to OUT."""
+    import datetime
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import compat_mesh
+    from repro_torch.models import sharding as shd
+    from repro_torch.train import step as tstep
+    rank, port, out = int(argv[0]), int(argv[1]), argv[2]
+    tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                             world_size=MESH_WORKERS, rank=rank,
+                             timeout=datetime.timedelta(seconds=300))
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.cuda.set_device(0)          # every rank shares the one card
+    mesh = compat_mesh((1, MESH_WORKERS), ("data", "model"), "cuda")
+    res = {}
+    for impl in ("psum", "a2a"):
+        cfg = dataclasses.replace(kernel_cfg(get_reduced("olmoe-1b-7b")),
+                                  moe_impl=impl)
+        specs = tstep.state_specs(cfg, mesh).params
+        data = SyntheticLM(DataConfig(seq_len=64, global_batch=4,
+                                      vocab=cfg.vocab, seed=0))
+        batches = [data.batch_at(i) for i in range(2)]
+        grad_fn = tstep.make_grad_fn(cfg, tstep.StepConfig(), mesh)
+        step = tstep.make_train_step(cfg, topt.OptimizerConfig(**TRAIN_OPT),
+                                     mesh=mesh)
+        runs = {}
+        for dev in ("cpu", DEV):
+            state = topt.tree_map(lambda t: t.to(dev), tstep.init_train_state(
+                cfg, seed=0, device="cpu", mesh=mesh))
+            routes = runs["cpu"]["routes"] if dev == DEV else [None] * 3
+            reset_launch_counts()
+            with moe_mod.log_routing(replay=routes[0]) as lg:
+                loss, _, grads, norm = grad_fn(state.params,
+                                               to_device(batches[0], dev))
+            grads = shd.map_specs(
+                lambda spec, g: shd.gather(g, spec, mesh,
+                                           differentiable=False).cpu(),
+                specs, grads)
+            losses, step_routes = [], [lg.topi]
+            for i, b in enumerate(batches):
+                with moe_mod.log_routing(
+                        replay=routes[i + 1],
+                        tie_ulps=moe_mod.NEAR_TIE_ULPS if i == 0
+                        else STEP_TIE_ULPS) as lg:
+                    state, m = step(state, to_device(b, dev))
+                losses.append(float(m["loss"]))
+                step_routes.append(lg.topi)
+            runs[dev if dev == "cpu" else "cuda"] = {
+                "loss": float(loss), "norm": float(norm), "losses": losses,
+                "grads": topt.tree_leaves(grads), "routes": step_routes,
+                "flash": LAUNCHES["flash_attention"]}
+        cpu, gpu = runs["cpu"], runs["cuda"]
+        ulps = max(float((a - b).abs().max()
+                         / (2.0 ** -8 * b.abs().max().clamp_min(1e-30)))
+                   for a, b in zip(gpu["grads"], cpu["grads"]))
+        cos = min(float((a.double() * b.double()).sum()
+                        / (a.double().norm() * b.double().norm())
+                        .clamp_min(1e-300))
+                  for a, b in zip(gpu["grads"], cpu["grads"])
+                  if b.abs().max() > 0)
+        res[impl] = {k: (v if k not in ("grads", "routes") else None)
+                     for k, v in gpu.items()}
+        res[impl].update(cpu_loss=cpu["loss"], cpu_losses=cpu["losses"],
+                         grad_ulps=ulps, grad_cos=cos)
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(res, f)
+    tdist.barrier()
+    tdist.destroy_process_group()
+
+
+def mesh_path():
+    """Phase 10 (iii): MESH_WORKERS processes sharing the card over gloo
+    (NCCL refuses two ranks on one device), reduced olmoe on the (1, 2)
+    mesh with moe_impl 'psum' and 'a2a' (``_ep_shard`` and
+    ``_ep_a2a_shard`` at two model shards): the card's loss and gradient
+    against the port's CPU run at the same mesh (loss rtol TRAIN_RTOL,
+    every gradient leaf within GRAD_ULPS bf16 ulps of its largest
+    magnitude, cosine >= 0.999), 2 steps' losses rtol TRAIN_RTOL; no speed
+    across cards is stated (one card)."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "mesh.json")
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--mesh-worker", str(r), str(port), out],
+                                  env=env)
+                 for r in range(MESH_WORKERS)]
+        try:
+            for p in procs:
+                p.wait(timeout=300)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            raise AssertionError(f"mesh workers exited with "
+                                 f"{[p.returncode for p in procs]}")
+        with open(out) as f:
+            res = json.load(f)
+    for impl, r in res.items():
+        pairs = [(r["loss"], r["cpu_loss"])] + list(zip(r["losses"],
+                                                        r["cpu_losses"]))
+        if any(not abs(a - b) <= TRAIN_RTOL * abs(b) for a, b in pairs) \
+                or r["grad_ulps"] > GRAD_ULPS or r["grad_cos"] < 0.999 \
+                or r["flash"] == 0:
+            raise AssertionError(f"mesh path {impl}: {r}")
+        log(f"mesh (1, {MESH_WORKERS}) reduced olmoe moe_impl {impl!r}, "
+            f"{MESH_WORKERS} gloo ranks on one card (every collective "
+            f"staged through host memory): loss {r['loss']:.6f} / CPU "
+            f"{r['cpu_loss']:.6f}, gradient within {r['grad_ulps']:.2f} "
+            f"bf16 ulps of max (cosine >= {r['grad_cos']:.6f}), steps "
+            f"{', '.join(f'{a:.6f}/{b:.6f}' for a, b in pairs[1:])}; "
+            f"flash_attention launches on rank 0 {r['flash']}")
+    log(f"phase 10 (iii) wall time {time.time() - t0:.1f} s (worker start-up "
+        f"included)")
+
+
+def moe_training_phase():
+    t0 = time.time()
+    reduced_moe_training()
+    counts = full_width_moe_training()
+    mesh_path()
+    log(f"phase 10 wall time {time.time() - t0:.1f} s")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Phase 4a: ML jobs through the bridge
 # ---------------------------------------------------------------------------
 # examples/schedule_training_cluster.py's fallback_jobs(): arch, shape,
@@ -2349,6 +2633,8 @@ def main():
         lm_counts[k] += v
     for k, v in train_phase().items():
         lm_counts[k] += v
+    for k, v in moe_training_phase().items():
+        lm_counts[k] += v
     check_waterfill_launches(real_net, 2000)
     check_fw_launches()
     for name, row in rows.items():
@@ -2367,4 +2653,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        mesh_worker(sys.argv[2:])
+    else:
+        main()

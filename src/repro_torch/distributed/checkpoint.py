@@ -8,22 +8,32 @@ order (as ``jax.tree_util`` flattens a dict), sequence positions as
 integers, NamedTuple fields as ``.<name>``.  So a checkpoint written by
 either package restores in the other, leaf for leaf.
 
-The JAX package's ``restore_checkpoint(..., shardings=)`` re-shards the
-restored leaves onto a JAX device mesh; the port has no mesh yet, so the
-argument is absent here (it comes with the port's sharding module).  A
-restored leaf is a numpy array, or a torch tensor on the device of the
+A restored leaf is a numpy array, or a torch tensor on the device of the
 matching leaf of ``state_like`` when that is one.  The training loop
 (``launch/train.py``) saves and restores its ``TrainState`` here, and a
 ``TrainState`` the JAX package wrote restores into the port's.
+
+On a device mesh (``models/sharding.py``) a state's leaves are the rank's
+shards.  ``save_checkpoint(..., shardings=)`` gathers the leaves whole,
+one at a time (a collective: every rank calls it), and process 0 writes
+each as it comes, so no shard is ever written as a partial leaf, the
+checkpoint stays leaf for leaf the JAX package's, and no rank holds more
+than one whole leaf.  ``restore_checkpoint(..., shardings=)`` re-shards
+the restored leaves onto a mesh that may differ from the writer's (the
+elastic downsize: a pod mesh's checkpoint onto a one-pod mesh), giving
+each rank its shard of each leaf.
 """
 from __future__ import annotations
 
 import json
 import os
+import zipfile
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.models.sharding import NamedSharding, gather
 
 SEP = "/"
 
@@ -64,47 +74,99 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _flat_shardings(shardings):
+    out = []
+
+    def walk(t):
+        if isinstance(t, NamedSharding):
+            out.append(t)
+        elif isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k])
+        else:
+            for x in t:
+                walk(x)
+    walk(shardings)
+    return out
+
+
+def _write_npz(path: str, leaves) -> Dict[str, Any]:
+    """``np.savez``'s file from ``(key, array)`` pairs, each written as it
+    comes (so only one is held at a time); returns each key's shape and
+    dtype."""
+    meta: Dict[str, Any] = {}
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, arr in leaves:
+            meta[key] = {"shape": list(arr.shape), "dtype": str(arr.dtype)}
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, arr, allow_pickle=False)
+    return meta
+
+
 def save_checkpoint(path: str, state: Any, step: int,
-                    process_index: int = 0) -> None:
-    """Write this process's shard and (process 0) the manifest."""
+                    process_index: int = 0, shardings: Any = None) -> None:
+    """Write this process's shard and (process 0) the manifest.  With
+    ``shardings`` (a tree of ``NamedSharding`` over ``state``'s structure,
+    ``state`` the rank's shards) the leaves are gathered whole one at a
+    time (a collective: every rank calls it) and only process 0 writes
+    each as it comes."""
+    flat = _flatten(state)
+    leaves = ((key, _to_numpy(leaf)) for key, leaf in flat)
+    if shardings is not None:
+        leaves = ((key, _to_numpy(gather(leaf, s.spec, s.mesh,
+                                         differentiable=False)))
+                  for (key, leaf), s in zip(flat,
+                                            _flat_shardings(shardings)))
+        if process_index != 0:
+            for _ in leaves:            # the other ranks' part of each gather
+                pass
+            return
     os.makedirs(path, exist_ok=True)
-    chunks: Dict[str, np.ndarray] = {}
-    manifest: Dict[str, Any] = {"step": int(step), "leaves": {}}
-    for key, leaf in _flatten(state):
-        arr = _to_numpy(leaf)
-        manifest["leaves"][key] = {
-            "shape": list(arr.shape), "dtype": str(arr.dtype)}
-        chunks[key] = arr
-    np.savez(os.path.join(path, f"shard_{process_index}.npz"), **chunks)
+    meta = _write_npz(os.path.join(path, f"shard_{process_index}.npz"),
+                      leaves)
     if process_index == 0:
         with open(os.path.join(path, "manifest.json"), "w") as f:
-            json.dump(manifest, f)
+            json.dump({"step": int(step), "leaves": meta}, f)
 
 
-def restore_checkpoint(path: str, state_like: Any) -> Tuple[Any, int]:
+def restore_checkpoint(path: str, state_like: Any,
+                       shardings: Any = None) -> Tuple[Any, int]:
     """Restore into the structure of ``state_like``: (tree, step).  Every
-    leaf of ``state_like`` must be in the checkpoint with its shape."""
+    leaf of ``state_like`` must be in the checkpoint with its shape; with
+    ``shardings`` (a tree of ``NamedSharding`` on the new mesh),
+    ``state_like`` holds the rank's shards there and each restored leaf
+    is cut to this rank's shard of it.  The leaves are read one at a
+    time."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-    data: Dict[str, np.ndarray] = {}
-    i = 0
-    while os.path.exists(os.path.join(path, f"shard_{i}.npz")):
-        with np.load(os.path.join(path, f"shard_{i}.npz")) as z:
-            for k in z.files:
-                data[k] = z[k]
-        i += 1
-    leaves = []
-    for key, like in _flatten(state_like):
-        if key not in data:
-            raise KeyError(f"checkpoint missing leaf {key!r}")
-        arr = data[key]
-        want = tuple(like.shape)
-        if tuple(arr.shape) != want:
-            raise ValueError(
-                f"{key}: checkpoint shape {arr.shape} != expected {want}")
-        if isinstance(like, torch.Tensor):
-            arr = torch.from_numpy(arr).to(like.device)
-        leaves.append(arr)
+    files, where = [], {}
+    try:
+        i = 0
+        while os.path.exists(os.path.join(path, f"shard_{i}.npz")):
+            files.append(np.load(os.path.join(path, f"shard_{i}.npz")))
+            where.update(dict.fromkeys(files[-1].files, files[-1]))
+            i += 1
+        flat_like = _flatten(state_like)
+        flat_shard = (_flat_shardings(shardings) if shardings is not None
+                      else [None] * len(flat_like))
+        leaves = []
+        for (key, like), sharding in zip(flat_like, flat_shard):
+            if key not in where:
+                raise KeyError(f"checkpoint missing leaf {key!r}")
+            arr = where[key][key]
+            if sharding is not None:
+                arr = np.array(arr[sharding.slices(arr.shape)])
+            want = tuple(like.shape)
+            if tuple(arr.shape) != want:
+                raise ValueError(
+                    f"{key}: checkpoint shape {arr.shape} != expected {want}")
+            if isinstance(like, torch.Tensor):
+                arr = torch.from_numpy(arr).to(like.device)
+            leaves.append(arr)
+    finally:
+        for z in files:
+            z.close()
     return _unflatten(state_like, iter(leaves)), manifest["step"]
 
 

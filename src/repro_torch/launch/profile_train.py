@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \\
         --arch zamba2-1.2b --batch 4 --seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \\
+        --arch olmoe-1b-7b --layers 4 --batch 4 --seq 2048
 
 From ``init_train_state(seed)`` and ``SyntheticLM(seed)``'s first batch,
 runs one train step to warm up (kernels, remat as the config has it),
@@ -12,7 +14,9 @@ AdamW update.  For each it prints ``launch.profile_serve``'s report: the
 wall time (the profiler slows the host, so it is above an unprofiled
 step's), the launches, the device's busy share, the device time by class
 (the hand-written kernels, GEMMs, everything else) and the kernels with
-the most device time.  The last line is the same as one JSON object.
+the most device time.  ``--layers`` cuts the depth at the published
+widths (olmoe-1b-7b's 16 layers do not fit one card in training).  The
+last line is the same as one JSON object.
 """
 from __future__ import annotations
 
@@ -38,6 +42,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -45,7 +51,8 @@ def main(argv=None) -> dict:
     on_cuda = device.type == "cuda"
     set_deterministic(device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    cfg = dataclasses.replace(cfg, attn_impl="kernel", ssm_impl="kernel")
+    cfg = dataclasses.replace(cfg, attn_impl="kernel", ssm_impl="kernel",
+                              n_layers=args.layers or cfg.n_layers)
     opt_cfg = opt_mod.OptimizerConfig()
     state = step_mod.init_train_state(cfg, args.seed, device)
     batch = to_device(SyntheticLM(DataConfig(
@@ -61,11 +68,13 @@ def main(argv=None) -> dict:
     update = window(lambda: opt_mod.adamw_update(
         opt_cfg, state.params, out["g"], state.opt), on_cuda)
     name = torch.cuda.get_device_name(device) if on_cuda else "cpu"
-    print(f"{cfg.name}: batch {args.batch}, seq {args.seq}, remat "
+    print(f"{cfg.name} ({cfg.n_layers} layers): batch {args.batch}, seq "
+          f"{args.seq}, remat "
           f"{cfg.remat}, on {name}")
     report("loss and gradients", grads)
     report("AdamW update", update)
-    result = {"arch": cfg.name, "batch": args.batch, "seq": args.seq,
+    result = {"arch": cfg.name, "layers": cfg.n_layers,
+              "batch": args.batch, "seq": args.seq,
               "device": name, "grads": grads, "update": update}
     print(json.dumps(result))
     return result

@@ -15,7 +15,11 @@ because the cast is the same rounding; every other leaf (norm weights,
 
 ``train_state_from_jax`` carries a whole JAX ``TrainState`` (parameters,
 AdamW's m and v, the step) across, so that both packages can train from
-one state.
+one state: every family's, the moe family's experts and router and
+MLA's low-rank projections included (on a mesh, ``train.step.
+shard_train_state`` then cuts the rank's shards, and a JAX checkpoint
+restores straight into a sharded state through
+``distributed.checkpoint.restore_checkpoint(..., shardings=)``).
 """
 from __future__ import annotations
 

@@ -13,10 +13,17 @@ Python loop walks the layers where the JAX code scans them; deepseek's
 leading dense layers live apart (``params["first_blocks"]``,
 ``cache["first"]``), as there.  With ``cfg.remat``, a training forward
 under grad mode runs each layer body under ``torch.utils.checkpoint``,
-as the JAX code wraps its scan body in ``jax.checkpoint``.  The port runs
-on one card: no mesh or sharding, and the moe layer is the single-card
-capacity dispatch (``models/moe.py``).  MLA runs the reference attention
-only (``check_supported``).
+as the JAX code wraps its scan body in ``jax.checkpoint``.  MLA runs the
+reference attention only (``check_supported``).
+
+``forward_train`` takes the JAX entry point's ``mesh`` and ``dp``: on a
+mesh (``train/step.py``) a rank runs the whole stack on its batch shard
+with the weights gathered, and the moe layer runs its expert-parallel body
+across the mesh (``models/moe.py``).  The JAX package's activation
+constraints and sequence parallelism are layouts of the same math;
+:func:`_sp_mode` decides the mode as the JAX code does, and the port
+computes every mode with the sequence whole.  Serving (``prefill``,
+``decode_step``) runs on one card.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import resolve_device
+from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -79,10 +87,26 @@ def _maybe_remat(fn, cfg):
     """``fn`` under ``torch.utils.checkpoint`` when ``cfg.remat`` and grad
     mode is on (the JAX package's ``jax.checkpoint(policy=
     nothing_saveable)`` on the scan body): the layer keeps its inputs, and
-    the backward reruns its forward, kernels included."""
+    the backward reruns its forward, kernels and collectives included (a
+    moe layer's rerun routes as its forward did:
+    ``moe.remat_contexts``)."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return fn
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                    context_fn=moe_mod.remat_contexts)
+
+
+def _sp_mode(cfg, mesh, S: int, decode: bool) -> str:
+    """The sequence-parallel mode the JAX package takes at this call site
+    (``repro/models/transformer.py:_sp_mode``): 'off' without a mesh of
+    several ranks with a ``model`` axis that divides S, in decode, or as
+    configured."""
+    if (cfg.seq_parallel == "off" or mesh is None or mesh.size() == 1
+            or decode or "model" not in mesh.mesh_dim_names):
+        return "off"
+    if S % axis_sizes(mesh)["model"] != 0:
+        return "off"
+    return cfg.seq_parallel
 
 
 def _stack(trees):
@@ -135,42 +159,68 @@ def _block_kinds(cfg: ModelConfig) -> Tuple[str, str, int]:
     return "dense", "dense", 0
 
 
+def _kept(keep, tree, path):
+    """``keep(path, leaf)`` over a tree of dicts (identity without
+    ``keep``)."""
+    if keep is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _kept(keep, v, path + (k,)) for k, v in tree.items()}
+    return keep(path, tree)
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
-                masters: bool = False) -> Params:
+                masters: bool = False, keep=None) -> Params:
     """Random parameters drawn from a ``torch.Generator`` seeded by
     ``seed`` on ``device`` (the draws differ from ``jax.random``'s: a test
     that compares the packages converts JAX's tree with
-    ``convert.params_from_jax``).  Layer leaves are stacked [L, ...];
+    ``convert.params_from_jax``; on the ``meta`` device, the shapes
+    alone).  Layer leaves are stacked [L, ...];
     the ``BF16_LEAVES`` are stored in bf16, every other leaf in f32 —
     or, with ``masters`` (training: AdamW updates f32 masters, as the JAX
     package's leaves are), every leaf in f32.  Each use casts to bf16, so
-    a bf16 tree serves as its f32 masters do."""
+    a bf16 tree serves as its f32 masters do.
+
+    ``keep(path, leaf)``, where given, takes each leaf as it is drawn and
+    returns what the tree keeps of it (a rank's shard on a mesh): a
+    stacked leaf one layer at a time, its path starting with ``blocks`` or
+    ``first_blocks``.  The draws are the same, and no more than one layer
+    or the embedding is ever held whole."""
     device = resolve_device(device)
     first_kind, kind, n_first = _block_kinds(cfg)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None                  # the meta device: shapes only
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     d, Vp = cfg.d_model, cfg.vocab_padded
     cast = (lambda t: t) if masters else cast_bf16_leaves
     store = F32 if masters else BF16
 
-    def stack(kind, n):
-        # cast each layer as it is drawn: the f32 copy of the whole stack
-        # is never held at once
-        return _stack([cast(_init_block(cfg, gen, kind, device))
+    def leaf(name, t):
+        return _kept(keep, t, (name,))
+
+    def stack(name, kind, n):
+        # cast (and keep) each layer as it is drawn: the f32 copy of the
+        # whole stack is never held at once
+        return _stack([leaf(name, cast(_init_block(cfg, gen, kind, device)))
                        for _ in range(n)])
 
     params: Params = {
-        "embed": (torch.randn((Vp, d), generator=gen, dtype=F32,
-                              device=device) * 0.02).to(store),
-        "final_norm": torch.ones((d,), dtype=F32, device=device),
-        "unembed": (torch.randn((d, Vp), generator=gen, dtype=F32,
-                                device=device) * d ** -0.5).to(store),
-        "blocks": stack(kind, cfg.n_layers - n_first),
+        "embed": leaf("embed", (torch.randn(
+            (Vp, d), generator=gen, dtype=F32, device=device)
+            * 0.02).to(store)),
+        "final_norm": leaf("final_norm", torch.ones((d,), dtype=F32,
+                                                    device=device)),
+        "unembed": leaf("unembed", (torch.randn(
+            (d, Vp), generator=gen, dtype=F32, device=device)
+            * d ** -0.5).to(store)),
+        "blocks": stack("blocks", kind, cfg.n_layers - n_first),
     }
     if n_first:
-        params["first_blocks"] = stack(first_kind, n_first)
+        params["first_blocks"] = stack("first_blocks", first_kind, n_first)
     if cfg.family == "hybrid":
-        params["shared_attn"] = cast(_init_block(cfg, gen, "dense", device))
+        params["shared_attn"] = leaf("shared_attn", cast(_init_block(
+            cfg, gen, "dense", device)))
     return params
 
 
@@ -178,9 +228,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
 # Blocks
 # ---------------------------------------------------------------------------
 def _dense_block(p, x, cfg, positions, *, cache=None, cache_len=None,
-                 kind="dense"):
+                 kind="dense", mesh=None, dp=("data",)):
     """Residual attention (or MLA) block followed by the MLP or the MoE
-    layer.  Returns (x, new_cache, aux)."""
+    layer (on ``mesh``, expert-parallel over it).  Returns (x, new_cache,
+    aux)."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.use_mla:
         if cache is None:
@@ -197,7 +248,7 @@ def _dense_block(p, x, cfg, positions, *, cache=None, cache_len=None,
     x = x + a
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if kind == "moe":
-        y, aux = moe_mod.moe_layer(p["moe"], h2, cfg)
+        y, aux = moe_mod.moe_layer(p["moe"], h2, cfg, mesh, dp)
     else:
         y, aux = mlp(p["mlp"], h2), torch.zeros((), dtype=F32,
                                                 device=x.device)
@@ -232,7 +283,7 @@ def _assemble_input(params, batch, cfg):
 
 
 def _run_stack(cfg, params, x, positions, *, mode, cache=None,
-               cache_len=None):
+               cache_len=None, mesh=None, dp=("data",), fetch=None):
     """Apply the leading layers, then the stacked ones.  Returns (x,
     new_cache, aux).
 
@@ -245,7 +296,7 @@ def _run_stack(cfg, params, x, positions, *, mode, cache=None,
     first_kind, kind, n_first = _block_kinds(cfg)
     if kind == "ssm":
         return _run_ssm_stack(cfg, params, x, positions, mode=mode,
-                              cache=cache, cache_len=cache_len)
+                              cache=cache, cache_len=cache_len, fetch=fetch)
 
     aux_total = torch.zeros((), dtype=F32, device=x.device)
     new_cache: Dict[str, Any] = {}
@@ -254,8 +305,9 @@ def _run_stack(cfg, params, x, positions, *, mode, cache=None,
             if blocks not in params:
                 continue
             body = _maybe_remat(
-                lambda p, h, k=k: _dense_block(p, h, cfg, positions,
-                                               kind=k)[::2], cfg)
+                lambda p, h, k=k, blocks=blocks: _dense_block(
+                    _fetched(fetch, blocks, p), h, cfg, positions, kind=k,
+                    mesh=mesh, dp=dp)[::2], cfg)
             for p in _unstack(params[blocks]):
                 x, aux = body(p, x)
                 aux_total = aux_total + aux
@@ -278,7 +330,12 @@ def _run_stack(cfg, params, x, positions, *, mode, cache=None,
     return x, new_cache, aux_total
 
 
-def _run_ssm_stack(cfg, params, x, positions, *, mode, cache, cache_len):
+def _fetched(fetch, name, layer):
+    return layer if fetch is None else fetch(name, layer)
+
+
+def _run_ssm_stack(cfg, params, x, positions, *, mode, cache, cache_len,
+                   fetch=None):
     """Mamba2 stack; zamba2 interleaves one *shared* attention block every
     ``attn_every`` layers (its own KV cache per application).
 
@@ -296,7 +353,7 @@ def _run_ssm_stack(cfg, params, x, positions, *, mode, cache, cache_len):
     B, S = x.shape[:2]
     if mode == "train":
         def body(p, h, i):
-            h, _ = _ssm_res_block(p, h, cfg)
+            h, _ = _ssm_res_block(_fetched(fetch, "blocks", p), h, cfg)
             if hybrid and i % cfg.attn_every == cfg.attn_every - 1:
                 h, _, _ = _dense_block(params["shared_attn"], h, cfg,
                                        positions)
@@ -354,11 +411,17 @@ def _hybrid_attn_cache(cfg, B, T, n_apps, device):
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
-def forward_train(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
-    """Returns (hidden [B,S,d], aux_loss)."""
+def forward_train(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
+                  mesh=None, dp: tuple = ("data",), fetch=None):
+    """Returns (hidden [B,S,d], aux_loss); on ``mesh``, of the rank's
+    batch shard with the aux loss over the global batch.  ``fetch(name,
+    layer)``, where given, turns one layer of the stacked leaves ``name``
+    into the layer's parameters as it runs, inside its remat unit (on a
+    mesh: gathers its shards)."""
     x = _assemble_input(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _, aux = _run_stack(cfg, params, x, positions, mode="train")
+    x, _, aux = _run_stack(cfg, params, x, positions, mode="train",
+                           mesh=mesh, dp=dp, fetch=fetch)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
 

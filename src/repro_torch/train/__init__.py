@@ -1,2 +1,2 @@
-# Training on one card: the chunked loss, AdamW and the train step
-# (repro.train's counterparts).
+# Training on one card or a device mesh: the chunked loss, AdamW and the train
+# step (repro.train's counterparts).

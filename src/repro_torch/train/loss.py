@@ -14,6 +14,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.models.layers import BF16, F32
 
 
@@ -54,10 +55,15 @@ def chunked_cross_entropy(hidden: torch.Tensor, unembed: torch.Tensor,
 
 
 def lm_loss(hidden, unembed, labels, vocab_real, chunk=512, aux=None,
-            aux_weight: float = 0.01):
-    """(mean next-token loss [+ aux_weight * aux], {nll, n_tokens, ce})."""
+            aux_weight: float = 0.01, dp_group=None):
+    """(mean next-token loss [+ aux_weight * aux], {nll, n_tokens, ce}).
+    With ``dp_group`` (a rank's batch shard on a mesh) the mean is over
+    the global batch: nll and the token count are summed over the group,
+    the nll by a differentiable psum."""
     nll, n = chunked_cross_entropy(hidden, unembed, labels, vocab_real,
                                    chunk)
+    if coll.size(dp_group) > 1:
+        nll, n = coll.psum(nll, dp_group), coll.all_reduce_sum(n, dp_group)
     ce = nll / torch.clamp(n, min=1.0)
     loss = ce if aux is None else ce + aux_weight * aux
     return loss, {"nll": nll, "n_tokens": n, "ce": ce}

@@ -102,20 +102,25 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Any, max_norm: float
+def clip_by_global_norm(grads: Any, max_norm: float, norm=None
                         ) -> Tuple[Any, torch.Tensor]:
-    norm = global_norm(grads)
+    """``grads`` scaled to at most ``max_norm``; ``norm`` is their global
+    norm (computed here unless given: sharded gradients bring theirs)."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads), norm
 
 
 @torch.no_grad()
 def adamw_update(cfg: OptimizerConfig, params: Any, grads: Any,
-                 state: OptState) -> Tuple[Any, OptState, dict]:
+                 state: OptState, grad_norm=None
+                 ) -> Tuple[Any, OptState, dict]:
     """One AdamW step on clipped gradients: (new params, new state,
     {"lr", "grad_norm"}).  New tensors throughout; nothing is updated in
-    place."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    place.  ``grad_norm``: the gradients' global norm where they are a
+    rank's shards (every update is elementwise, so a shard updates as its
+    part of the whole)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, grad_norm)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
     b1c = 1 - cfg.b1 ** step.to(F32)
