@@ -201,6 +201,25 @@ Phases, in order, each of which fails the script when it fails:
      gradient (every leaf within 8 bf16 ulps of its largest magnitude,
      cosine >= 0.999) and 2 steps' losses (rtol 1e-3) on the card against
      the same mesh's run with the state on the CPU;
+  11. serving on a mesh and the dry run against the card (after phase
+     10, its wall time printed): (i) SERVE_WORKERS (2) processes sharing
+     the card over gloo (each is this script run with --serve-worker),
+     reduced olmoe-1b-7b and zamba2-1.2b (kernels) on the (1, 2) mesh,
+     batch 4 x 64, prefill and 8 decode steps on the card (fed the CPU
+     run's tokens, routed as it) against the CPU run at the same mesh:
+     each rank's logits within MODEL_ULPS, tokens equal where the CPU's
+     top-2 margin is clear, flash_attention and ssd_scan launches per
+     rank printed; (ii) launch/dryrun.py's count at the (1, 1)
+     shape-only mesh of zamba2-1.2b's prefill (batch 4 x 2048, f32
+     weights, as the dry run takes them) and training step and of
+     olmoe-1b-7b's at 4 of 16 layers, beside the same step on the card
+     at the host mesh: the count's bound max(t_compute, t_memory) must
+     not beat the measured time (median of 3 steps), and the card's peak
+     of a step over the count's argument + temp must lie in MEMORY_RATIO
+     (0.8-1.25); (iii) ``python -m repro_torch.launch.dryrun --all
+     --mesh single`` in a process of its own beside (i) and (ii): no row
+     in error, every status as cell_is_runnable, its wall time printed
+     (--mesh single: both meshes took over the 3 minutes allowed);
   8. seg_waterfill's device events per call of each variant at F = 12000
      under torch.profiler (20 calls each), with each event's device time:
      the shared-memory variant must be one kernel and no memset, the
@@ -262,6 +281,16 @@ from repro_torch.kernels.fw_minplus import (floyd_warshall,  # noqa: E402
 from repro_torch.kernels.seg_waterfill import (seg_waterfill,  # noqa: E402
                                                seg_waterfill_ref)
 from repro_torch.launch.profile import device_summary  # noqa: E402
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, the dense TF32
+# tensor-core rate (ssd_scan's f32 inputs, whose products run on the tensor
+# cores) and the dense bf16 tensor-core rate (the type of flash_attention's
+# inputs on the model path); bound_ms defaults to the FP32 rate outside the
+# tensor cores (the simulator's kernels compute in f32)
+from repro_torch.core.h100 import (  # noqa: E402
+    HBM_BW, PEAK_FLOPS, PEAK_TF32_PER_S)
+# the kernels' work and the prefill's FLOPs, which the dry run counts with too
+from repro_torch.launch.roofline import (  # noqa: E402
+    bound_ms, flash_work, n_moe_layers, prefill_flops, ssd_work)
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
@@ -282,7 +311,9 @@ from repro_torch.launch.dist import (GridSpec, run_dist_sweep,  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.core import bridge  # noqa: E402
-from repro_torch.serve.step import make_decode_step, start  # noqa: E402
+from repro_torch.serve.step import (all_rows,  # noqa: E402
+                                    make_decode_step, start)
+from repro_torch.serve.step import init_params as serve_init_params  # noqa: E402
 from repro_torch.data.pipeline import (DataConfig,  # noqa: E402
                                        SyntheticLM, to_device)
 from repro_torch.kernels.flash_attention import FlashAttentionFn  # noqa: E402
@@ -294,15 +325,6 @@ from repro_torch.train.step import (init_train_state,  # noqa: E402
                                     make_train_step)
 
 DEV = torch.device("cuda")
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, the FP32 rate
-# outside the tensor cores (the simulator's kernels compute in f32), the
-# dense TF32 tensor-core rate (ssd_scan's f32 inputs, whose products run
-# on the tensor cores) and the dense bf16 tensor-core rate (the type of
-# flash_attention's inputs on the model path)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_PER_S = 67e12
-PEAK_TF32_PER_S = 495e12
-PEAK_BF16_PER_S = 989e12
 REPS = 10
 MODEL_ULPS = 4   # reduced serve, card against CPU (see phase 6)
 FULL_ULPS = 8    # full-width prefill, kernels against plain versions
@@ -332,12 +354,6 @@ def time_ms(fn, reps=REPS, warm=3, runs=3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
-
-
-def bound_ms(n_bytes: float, n_ops: float, peak_ops=PEAK_FP32_PER_S):
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / peak_ops * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def entry_label(line):
@@ -704,7 +720,7 @@ def check_fw():
     # n_pad^3 relaxations, each an FADD and an FMNMX
     relax = float(n_pad) ** 3
     t_ops = 2 * relax / peak * 1e3
-    t_bytes = 2 * 4 * n * n / PEAK_BYTES_PER_S * 1e3
+    t_bytes = 2 * 4 * n * n / HBM_BW * 1e3
     b, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                   else "bytes")
     log(f"fw_minplus n={n}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
@@ -783,31 +799,6 @@ def ssd_inputs(B, S, H, P, N, seed):
             f(r.standard_normal((B, S, N)) * 0.5),
             f(r.standard_normal((B, S, N)) * 0.5),
             f(r.uniform(0.01, 0.2, (B, S, H))), f(r.uniform(-1, 0.5, H)))
-
-
-def flash_work(B, S, Hq, Hkv, D, elem):
-    """(bytes, operations) of causal attention: q, k, v read once and o
-    written once; 2 D multiply-adds per (q, k) pair with k <= q, for the
-    scores and for the PV product."""
-    n_bytes = elem * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
-    return n_bytes, 4.0 * B * Hq * D * (S * (S + 1) / 2)
-
-
-def ssd_work(B, S, H, P, N, Q):
-    """(bytes, operations) of the chunk scan: xs, B, C, dt and A_log read
-    once, y and the final state written once; per (b, chunk of Qc) the
-    causal half of C.B^T, N multiply-adds per pair (B and C have one
-    group, so every head shares it); per (b, h, chunk) the causal half of
-    M.xs, P multiply-adds per pair, plus Qc N P for C.h and Qc N P for the
-    state update."""
-    n_bytes = 4 * (2 * B * S * H * P + 2 * B * S * N + B * S * H + H
-                   + B * H * P * N)
-    ops = 0.0
-    for c0 in range(0, S, Q):
-        qc = min(Q, S - c0)
-        pairs = qc * (qc + 1) / 2
-        ops += 2.0 * B * (pairs * N + H * (pairs * P + 2 * qc * N * P))
-    return n_bytes, ops
 
 
 def attention_low_precision(q, k, v, causal=True, scale=None, round_p=True,
@@ -898,7 +889,7 @@ def check_lm_kernels():
             sdpa = torch.nn.functional.scaled_dot_product_attention
             lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                        enable_gqa=True))
-        b, by = bound_ms(*flash_work(*shape, elem=2), peak_ops=PEAK_BF16_PER_S)
+        b, by = bound_ms(*flash_work(*shape, elem=2), peak_ops=PEAK_FLOPS)
         log(f"flash_attention {name}: kernel {ms:.4f} ms, plain {plain:.4f} "
             f"ms, SDPA {lib:.4f} ms, bound {b:.6f} ms ({by})")
         if i == 0:
@@ -1125,10 +1116,6 @@ def family_cfg(cfg, impl, n_layers=None):
     return dataclasses.replace(cfg, n_layers=n_layers) if n_layers else cfg
 
 
-def n_moe_layers(cfg) -> int:
-    return cfg.n_layers - cfg.first_dense if cfg.n_experts else 0
-
-
 def teacher_forced(cfg, params, batch, ref):
     """The prefill, then one decode step per token of ``ref`` (a ``serve``
     result) fed the tokens ``ref`` fed: the logits in ``serve``'s form."""
@@ -1180,33 +1167,6 @@ def reduced_families():
             f"{sum(rep.replaced)} of {sum(a for a, _ in routes.drops)} "
             f"top-k positions replayed at a near tie), launches "
             f"{gpu['prefill_launches']}")
-
-
-def prefill_flops(cfg, B, S) -> float:
-    """The prefill's products (2 FLOP a multiply-add): projections, MLPs and
-    the grouped expert products over all E x C capacity slots, causal
-    attention (its half of S^2), the router and the last position's
-    unembedding."""
-    T, d, H = B * S, cfg.d_model, cfg.n_heads
-    if cfg.use_mla:
-        dk, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
-        proj = (d * cfg.q_lora_rank + cfg.q_lora_rank * H * dk
-                + d * (cfg.kv_lora_rank + cfg.qk_rope_dim)
-                + cfg.kv_lora_rank * H * (cfg.qk_nope_dim + dv) + H * dv * d)
-    else:
-        dk = dv = cfg.d_head
-        proj = d * (H + 2 * cfg.n_kv_heads) * dk + H * dk * d
-    per_layer = 2.0 * T * proj + 2.0 * B * H * (dk + dv) * S * (S + 1) / 2
-    n_moe = n_moe_layers(cfg)
-    flops = cfg.n_layers * per_layer
-    flops += (cfg.n_layers - n_moe) * 2.0 * T * 3 * d * cfg.d_ff
-    if n_moe:
-        C = moe_mod.capacity(T, cfg)
-        f = cfg.d_ff_expert
-        flops += n_moe * (2.0 * 3 * cfg.n_experts * C * d * f
-                          + 2.0 * T * d * cfg.n_experts
-                          + 2.0 * T * 3 * d * cfg.n_shared_experts * f)
-    return flops + 2.0 * B * d * cfg.vocab_padded
 
 
 def family_serve(arch, impl, B, n_layers, want_flash, S=2048, n=32):
@@ -1784,6 +1744,331 @@ def moe_training_phase():
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: serving on a mesh; the dry run against the card
+# ---------------------------------------------------------------------------
+SERVE_WORKERS = 2
+SERVE_STEPS = 8
+# phase 11 (ii): the card's peak memory of a step over the cost counter's
+# argument + temp bytes for it must lie in this band (PERF.md §6)
+MEMORY_RATIO = (0.8, 1.25)
+# phase 11 (iii): the meshes of the full dry run: "single" (40 cells), as
+# "both" (80) took 208.0 s on the card's host, over the 3 minutes allowed
+DRYRUN_MESH = "single"
+DRY_CELLS = (("zamba2-1.2b", None, "prefill"), ("zamba2-1.2b", None, "train"),
+             ("olmoe-1b-7b", 4, "train"))
+DRY_B, DRY_S = 4, 2048
+
+
+def mesh_serve(cfg, params, batch, n, mesh, dp, feed=None, routes=None):
+    """The prefill and ``n`` decode steps on ``mesh`` (greedy, or fed the
+    global tokens ``feed`` [B, n], the routing held to ``routes``): the
+    rank's rows of the prefill and step logits, the global tokens fed,
+    the routing and the launches of the prefill and of the decode."""
+    replay = (lambda i: None) if routes is None else (lambda i: routes[i])
+    reset_launch_counts()
+    with moe_mod.log_routing(replay=replay(0)) as lg:
+        tok, logits, cache, S = start(cfg, params, batch, n, None, mesh, dp)
+    pf_launch, got = dict(LAUNCHES), [lg.topi]
+    reset_launch_counts()
+    decode = make_decode_step(cfg, mesh, dp)
+    fed, steps = [all_rows(tok, cache)], []
+    for t in range(n):
+        x = fed[-1] if feed is None else feed[:, t]
+        with moe_mod.log_routing(replay=replay(t + 1)) as lg:
+            tok, lg_t, cache = decode(params, x[:, None], cache, S + t)
+        got.append(lg.topi)
+        steps.append(lg_t)
+        fed.append(all_rows(tok, cache) if feed is None else None)
+    fed = torch.stack(fed[:-1], 1) if feed is None else feed
+    return {"logits": logits, "steps": torch.stack(steps, 1), "feed": fed,
+            "routes": got, "prefill": pf_launch, "decode": dict(LAUNCHES)}
+
+
+def serve_worker(argv):
+    """One rank of phase 11 (i) (``chip_smoke.py --serve-worker RANK PORT
+    OUT``): reduced olmoe-1b-7b and zamba2-1.2b (kernels) served on the
+    (1, SERVE_WORKERS) mesh over a gloo group of ranks sharing the card,
+    once with the weights and the batch on the CPU (greedy) and once on
+    the card (fed the CPU's tokens, routed as the CPU run was); this
+    rank's rows compared, written to OUT.rankR."""
+    import datetime
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import compat_mesh
+    from repro_torch.models import sharding as shd
+    rank, port, out = int(argv[0]), int(argv[1]), argv[2]
+    tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                             world_size=SERVE_WORKERS, rank=rank,
+                             timeout=datetime.timedelta(seconds=300))
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.cuda.set_device(0)          # every rank shares the one card
+    mesh = compat_mesh((1, SERVE_WORKERS), ("data", "model"), "cuda")
+    dp = shd.data_axes(mesh)
+    res = {}
+    for arch in ("olmoe-1b-7b", "zamba2-1.2b"):
+        cfg = kernel_cfg(get_reduced(arch))
+        params = serve_init_params(cfg, 0, "cpu", mesh)
+        batch = prompt_batch(cfg, 4, 64, 0, "cpu")
+        cpu = mesh_serve(cfg, params, batch, SERVE_STEPS, mesh, dp)
+        gpu = mesh_serve(cfg, topt.tree_map(lambda t: t.to(DEV), params),
+                         to_device(batch, DEV), SERVE_STEPS, mesh, dp,
+                         feed=cpu["feed"].to(DEV), routes=cpu["routes"])
+        row = {}
+        for k in ("logits", "steps"):
+            ref, got = cpu[k], gpu[k].cpu()
+            tol = MODEL_ULPS * ulp_bf16(float(ref.abs().max()))
+            part = ref.sort(-1).values
+            clear = (part[..., -1] - part[..., -2]) > 2 * tol
+            toks = got.argmax(-1) == ref.argmax(-1)
+            row[k] = {"ulps": ulp_gap(got, ref),
+                      "tokens_equal": bool(toks[clear].all()),
+                      "clear": int(clear.sum()), "n": clear.numel()}
+        row["launches"] = {"prefill": gpu["prefill"],
+                           "decode": gpu["decode"]}
+        res[arch] = row
+    with open(f"{out}.rank{rank}", "w") as f:
+        json.dump(res, f)
+    tdist.barrier()
+    tdist.destroy_process_group()
+
+
+def serving_mesh():
+    """Phase 11 (i): SERVE_WORKERS processes sharing the card over gloo,
+    reduced olmoe and zamba2 with kernels on the (1, 2) mesh: prefill and
+    SERVE_STEPS decode steps on the card against the CPU run at the same
+    mesh, each rank's rows within MODEL_ULPS and its tokens equal where
+    the CPU's top-2 margin is clear; flash_attention and ssd_scan
+    launches per rank."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "serve.json")
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--serve-worker", str(r), str(port), out],
+                                  env=env)
+                 for r in range(SERVE_WORKERS)]
+        try:
+            for p in procs:
+                p.wait(timeout=300)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            raise AssertionError(f"serve workers exited with "
+                                 f"{[p.returncode for p in procs]}")
+        res = []
+        for r in range(SERVE_WORKERS):
+            with open(f"{out}.rank{r}") as f:
+                res.append(json.load(f))
+    for r, per in enumerate(res):
+        for arch, row in per.items():
+            bad = [k for k in ("logits", "steps")
+                   if row[k]["ulps"] > MODEL_ULPS
+                   or not row[k]["tokens_equal"]]
+            lp = row["launches"]
+            if bad or not lp["prefill"]["flash_attention"] or any(
+                    lp["decode"].values()):
+                raise AssertionError(f"mesh serving {arch} rank {r}: {row}")
+            log(f"mesh (1, {SERVE_WORKERS}) serving reduced {arch} rank {r}"
+                f" (kernels; card vs CPU at the same mesh, fed the CPU's "
+                f"tokens, routed as it): prefill logits "
+                f"{row['logits']['ulps']:.2f} and {SERVE_STEPS} decode "
+                f"steps' {row['steps']['ulps']:.2f} bf16 ulps of max (bound"
+                f" {MODEL_ULPS}), tokens equal where the margin is clear "
+                f"({row['steps']['clear']} of {row['steps']['n']}); "
+                f"launches a prefill: flash_attention "
+                f"{lp['prefill']['flash_attention']}, ssd_scan "
+                f"{lp['prefill']['ssd_scan']}; decode {lp['decode']}")
+    log(f"phase 11 (i) wall time {time.time() - t0:.1f} s (worker start-up "
+        f"included)")
+
+
+def _storage_bytes(leaves) -> int:
+    seen, n = set(), 0
+    for t in leaves:
+        st = t.untyped_storage()
+        if st.data_ptr() not in seen:
+            seen.add(st.data_ptr())
+            n += st.nbytes()
+    return n
+
+
+def card_cell(cfg, shape, mesh, dp, reps=3):
+    """A dry-run cell's step run on the card at the host mesh: (median ms
+    of ``reps`` synced steps after the first, the first step's peak bytes
+    with its arguments over what the card held before they were drawn,
+    the arguments' bytes, the bytes the card holds after the first step
+    beyond that and the arguments)."""
+    from repro_torch.serve.step import make_prefill_step
+    from repro_torch.train.step import StepConfig
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    if shape.kind == "train":
+        state = init_train_state(cfg, 0, DEV, mesh)
+        data = SyntheticLM(DataConfig(seq_len=shape.seq_len,
+                                      global_batch=shape.global_batch,
+                                      vocab=cfg.vocab, seed=0))
+        batch = to_device(data.batch_at(0), DEV)
+        step = make_train_step(cfg, topt.OptimizerConfig(), StepConfig(),
+                               mesh=mesh, dp=dp)
+        args = [state, batch]
+        run = lambda: step(args[0], args[1])[0]
+        leaves = topt.tree_leaves(state.params) + topt.tree_leaves(
+            state.opt.m) + topt.tree_leaves(state.opt.v) + [
+            state.opt.step] + list(batch.values())
+    else:
+        params = serve_init_params(cfg, 0, DEV, mesh, masters=True)
+        batch = prompt_batch(cfg, shape.global_batch, shape.seq_len, 0, DEV)
+        step = make_prefill_step(cfg, mesh, dp)
+        args = [params, batch]
+        run = lambda: step(params, batch)
+        leaves = topt.tree_leaves(params) + list(batch.values())
+    grad = torch.enable_grad if shape.kind == "train" else torch.no_grad
+    arg_bytes = _storage_bytes(leaves)
+    with grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = run()
+        del out
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        held = torch.cuda.memory_allocated() - base - arg_bytes
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            del out
+    del args, leaves, step, run
+    torch.cuda.empty_cache()
+    return statistics.median(times), peak, arg_bytes, held
+
+
+def dryrun_against_card():
+    """Phase 11 (ii): the (1, 1) shape-only dry run of cells the script
+    runs at full width (zamba2-1.2b's prefill at batch 4 x 2048, its
+    training step; olmoe-1b-7b cut to 4 of 16 layers, training), beside
+    the same step on the card at the host mesh: the count's bound
+    max(t_compute, t_memory) must not beat the measured time, and the
+    card's peak bytes over the count's argument + temp must lie in
+    MEMORY_RATIO."""
+    import torch.distributed as tdist
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import ShapeMesh, make_host_mesh
+    from repro_torch.models.config import ShapeSpec
+    host = make_host_mesh("cuda")
+    dp = ("data",)
+    try:
+        for arch, n_layers, kind in DRY_CELLS:
+            cfg = kernel_cfg(get_config(arch))
+            if n_layers:
+                cfg = dataclasses.replace(cfg, n_layers=n_layers)
+            shape = ShapeSpec(f"{kind}_{DRY_S}", DRY_S, DRY_B, kind)
+            cc, arg_bytes, _, secs = dryrun.trace_cell(
+                cfg, shape, ShapeMesh((1, 1), ("data", "model")))
+            terms = cc.terms(1)
+            bound = max(terms.t_compute, terms.t_memory) * 1e3
+            counted = cc.peak_bytes
+            ms, peak, card_args, held = card_cell(cfg, shape, host, dp)
+            ratio = peak / counted
+            layers = f" ({n_layers} of 16 layers)" if n_layers else ""
+            log(f"dry run vs card, {arch}{layers} {kind} B={DRY_B} "
+                f"S={DRY_S} at "
+                f"(1, 1): counted {cc.flops:.4e} FLOP "
+                f"({', '.join(f'{k} {v:.3e}' for k, v in sorted(cc.flops_by_dtype.items()))}), "
+                f"{cc.hbm_bytes:.4e} HBM bytes, kernels {cc.kernels} "
+                f"(traced in {secs:.1f} s): t_compute {terms.t_compute * 1e3:.3f} ms, "
+                f"t_memory {terms.t_memory * 1e3:.3f} ms, bound "
+                f"{bound:.3f} ms ({terms.bottleneck}); measured {ms:.3f} ms "
+                f"({bound / ms:.4f} of it); argument + temp "
+                f"{counted / 2**30:.3f} GiB (arguments {cc.argument_bytes / 2**30:.3f}; "
+                f"the card's {card_args / 2**30:.3f}), card peak of the "
+                f"first step {peak / 2**30:.3f} GiB ({held / 2**30:.3f} "
+                f"GiB more held after it), ratio {ratio:.4f} (band "
+                f"{MEMORY_RATIO})")
+            if ms < bound:
+                raise AssertionError(f"{arch} {kind}: measured {ms} ms beats "
+                                     f"the counted bound {bound} ms")
+            if not MEMORY_RATIO[0] <= ratio <= MEMORY_RATIO[1]:
+                raise AssertionError(f"{arch} {kind}: card peak over the "
+                                     f"count {ratio} outside {MEMORY_RATIO}")
+    finally:
+        tdist.destroy_process_group()
+
+
+def start_full_dryrun(path):
+    """Phase 11 (iii), started: ``python -m repro_torch.launch.dryrun --all
+    --mesh DRYRUN_MESH --out path`` in a process of its own (CPU only, on
+    meta tensors), run beside (i) and (ii)."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src"))
+    log_f = open(path + ".log", "w")
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun",
+                             "--all", "--mesh", DRYRUN_MESH, "--out", path],
+                            env=env, stdout=log_f, stderr=subprocess.STDOUT)
+    return proc, log_f, time.time()
+
+
+def finish_full_dryrun(proc, log_f, t0, path):
+    """Phase 11 (iii), checked: no row with status error, every cell's
+    status as ``cell_is_runnable`` says."""
+    from repro_torch.configs import ARCH_IDS, SHAPES, cell_is_runnable
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log_f.close()
+    wall = time.time() - t0
+    if rc != 0:
+        with open(path + ".log") as f:
+            raise AssertionError(f"full dry run exited {rc}: "
+                                 f"{f.read()[-3000:]}")
+    with open(path) as f:
+        rows = json.load(f)
+    meshes = ["single", "multi"] if DRYRUN_MESH == "both" else [DRYRUN_MESH]
+    want = {(a, s, m): "ok" if cell_is_runnable(get_config(a), SHAPES[s])[0]
+            else "skipped" for a in ARCH_IDS for s in SHAPES for m in meshes}
+    got = {(r["arch"], r["shape"], r["mesh"]): r["status"] for r in rows}
+    if got != want:
+        bad = {k: (got.get(k), v) for k, v in want.items()
+               if got.get(k) != v}
+        raise AssertionError(f"full dry run statuses differ: {bad}")
+    ok = [r for r in rows if r["status"] == "ok"]
+    log(f"phase 11 (iii) full dry run --all --mesh {DRYRUN_MESH}: "
+        f"{len(rows)} rows, {len(ok)} ok, {len(rows) - len(ok)} skipped, "
+        f"none in error, statuses as cell_is_runnable; wall {wall:.1f} s "
+        f"(in a process of its own, beside (i) and (ii)); sum of the cells'"
+        f" lower_s {sum(r['lower_s'] for r in ok):.1f} s")
+
+
+def serving_mesh_phase():
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "dryrun_results_torch.json")
+        proc, log_f, t1 = start_full_dryrun(path)
+        try:
+            serving_mesh()
+            dryrun_against_card()
+        except BaseException:
+            proc.kill()
+            proc.wait()
+            log_f.close()
+            raise
+        finish_full_dryrun(proc, log_f, t1, path)
+    log(f"phase 11 wall time {time.time() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # Phase 4a: ML jobs through the bridge
 # ---------------------------------------------------------------------------
 # examples/schedule_training_cluster.py's fallback_jobs(): arch, shape,
@@ -1794,11 +2079,14 @@ BRIDGE_JOBS = (("smollm-360m", "train_4k", 6, 10, 1.5e14, 5e9, 4.0),
 
 
 def bridge_state(cfg, device):
+    """The example's testbed with its jobs at its work-unit clock (the JAX
+    package's default ``gpu_speed_flops``, 197e12)."""
     spec, net = build_paper_network(cfg, bw=10000.0, device=device)
     jobs = [bridge.MLJobSpec(*j) for j in BRIDGE_JOBS]
     return spec, init_sim(build_paper_hosts(device=device),
-                          bridge.workload_from_jobs(jobs, cfg,
-                                                    device=device), net)
+                          bridge.workload_from_jobs(
+                              jobs, cfg, gpu_speed_flops=197e12,
+                              device=device), net)
 
 
 def bridge_phase():
@@ -2635,6 +2923,7 @@ def main():
         lm_counts[k] += v
     for k, v in moe_training_phase().items():
         lm_counts[k] += v
+    serving_mesh_phase()
     check_waterfill_launches(real_net, 2000)
     check_fw_launches()
     for name, row in rows.items():
@@ -2655,5 +2944,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-worker"]:
         mesh_worker(sys.argv[2:])
+    elif sys.argv[1:2] == ["--serve-worker"]:
+        serve_worker(sys.argv[2:])
     else:
         main()

@@ -7,7 +7,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.models.config import ModelConfig, SHAPES, ShapeSpec  # noqa: F401
+from repro_torch.models.config import (ModelConfig, SHAPES,  # noqa: F401
+                                       ShapeSpec, cell_is_runnable)
 
 ARCH_IDS = [
     "deepseek_v2_236b",

@@ -2,7 +2,8 @@
 package's ``core/bridge.py``).
 
 The paper's motivating workload is container-based distributed training
-and inference.  A dry-run cell's roofline terms (per-device FLOPs, the
+and inference.  A dry-run cell's roofline terms (a row of either
+package's dry run: ``repro_torch.launch.dryrun`` writes the JAX keys) (per-device FLOPs, the
 gradient exchange that crosses the fabric) become a DCSim job whose
 
 * container compute demand  = per-device step FLOPs (scaled to the
@@ -27,6 +28,7 @@ import torch
 from repro_torch.core.datacenter import SimConfig
 from repro_torch.core.types import (ContainerState, empty_containers,
                                     resolve_device)
+from repro_torch.core.h100 import PEAK_FLOPS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,13 +88,15 @@ def jobs_from_results(path: str, shape: str = "train_4k",
 
 def workload_from_jobs(jobs: Sequence[MLJobSpec], cfg: SimConfig,
                        capacity: int | None = None,
-                       gpu_speed_flops: float = 197e12,
+                       gpu_speed_flops: float = PEAK_FLOPS,
                        seed: int = 0, device=None) -> ContainerState:
     """Materialize MLJobSpecs as a DCSim ContainerState on ``device``.
 
-    * duration (work units) = steps * flops / gpu_speed_flops, clipped to
-      [5, 300] — a speed-s host finishes in duration/s seconds, exactly
-      the paper's model;
+    * duration (work units) = steps * flops / gpu_speed_flops (by default
+      the H100's bf16 peak, ``core.h100.PEAK_FLOPS``; the JAX
+      package's default is a TPU v5e's 197e12), clipped to [5, 300] — a
+      speed-s host finishes in duration/s seconds, exactly the paper's
+      model;
     * per-step collective traffic becomes ``n_comms = min(steps, 10)``
       comm events between same-job containers, carrying the job's bytes
       over its steps (in KB);

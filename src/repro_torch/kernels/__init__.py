@@ -5,7 +5,10 @@ its wrapper and its plain PyTorch version.
 
 A wrapper runs the plain version only for tensors on the CPU, where there
 is no kernel to launch; on CUDA tensors it launches the kernel or raises.
-Each wrapper adds one to its entry of ``LAUNCHES`` where it launches.
+Each wrapper adds one to its entry of ``LAUNCHES`` where it launches.  On
+``meta`` tensors an LM kernel's wrapper checks what its kernel would check
+and hands the call to :func:`meta_stand_in`, which raises outside a cost
+counter (``launch.roofline.CostCounter``).
 """
 from __future__ import annotations
 
@@ -16,6 +19,23 @@ KERNEL_FLAGS = ("auto", "on", "off")
 # wrapper name -> launches since the last reset_launch_counts()
 LAUNCHES: dict[str, int] = {"seg_waterfill": 0, "fw_minplus": 0,
                              "flash_attention": 0, "ssd_scan": 0}
+
+
+# the cost counter tracing a shape-only program, while one is open
+_COUNTER = None
+
+
+def meta_stand_in(name: str, plain, *args):
+    """Kernel ``name`` on ``meta`` inputs, inside a cost counter only: the
+    counter records the kernel's work (``launch.roofline.kernel_work``)
+    and ``plain(*args)`` gives the outputs' shapes, left out of the
+    count.  Raises outside a counter: a meta tensor has no kernel to
+    launch."""
+    if _COUNTER is None:
+        raise RuntimeError(
+            f"{name}: a meta tensor has no kernel to launch; only a cost "
+            f"counter (launch.roofline.CostCounter) traces one's shapes")
+    return _COUNTER.kernel(name, plain, *args)
 
 
 def reset_launch_counts() -> None:

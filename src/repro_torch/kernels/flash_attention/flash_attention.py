@@ -24,7 +24,8 @@ import math
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, check_cuda_tensor, check_no_grad
+from repro_torch.kernels import (LAUNCHES, check_cuda_tensor, check_no_grad,
+                                 meta_stand_in)
 
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's template instances
 WGMMA_HEAD_DIMS = (64, 128)     # the tensor-core variant's, on bf16
@@ -98,6 +99,9 @@ def flash_attention(q, k, v, causal: bool = True, scale=None):
                          f"{HEAD_DIMS}, got {D}")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"q heads {Hq} must be a multiple of kv heads {Hkv}")
+    if q.device.type == "meta":
+        return meta_stand_in("flash_attention", flash_attention_ref, q, k, v,
+                             causal, scale)
     check_cuda_tensor("q", q, q.dtype, (B, S, Hq, D))
     check_cuda_tensor("k", k, q.dtype, (B, S, Hkv, D))
     check_cuda_tensor("v", v, q.dtype, (B, S, Hkv, D))

@@ -19,7 +19,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, check_cuda_tensor, check_no_grad
+from repro_torch.kernels import (LAUNCHES, check_cuda_tensor, check_no_grad,
+                                 meta_stand_in)
 
 MAX_HEAD_DIM = 64   # P: one 64-column output tile per thread block
 MAX_CHUNK = 256     # Q: at most four 64-row q tiles per chunk
@@ -96,6 +97,9 @@ def ssd_scan(xs, Bm, Cm, dt, A_log, Q: int = 256):
         raise ValueError(f"ssd_scan takes P <= {MAX_HEAD_DIM}, P and N "
                          f"multiples of 4 and Q <= {MAX_CHUNK}, got P={P}, "
                          f"N={N}, Q={Q}")
+    if xs.device.type == "meta":
+        return meta_stand_in("ssd_scan", ssd_scan_ref, xs, Bm, Cm, dt, A_log,
+                             Q)
     check_cuda_tensor("xs", xs, F32, (B, S, H, P))
     check_cuda_tensor("Bm", Bm, F32, (B, S, N))
     check_cuda_tensor("Cm", Cm, F32, (B, S, N))

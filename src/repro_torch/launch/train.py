@@ -56,7 +56,7 @@ from repro_torch.distributed.fault import (FaultConfig, HeartbeatMonitor,
                                            StragglerDetector,
                                            TrainingSupervisor)
 from repro_torch.kernels import LAUNCHES, reset_launch_counts
-from repro_torch.launch.mesh import make_mesh_for
+from repro_torch.launch.mesh import join_group, make_mesh_for
 from repro_torch.models.config import IMPLS
 from repro_torch.models.sharding import data_axes
 from repro_torch.models.transformer import _sp_mode
@@ -74,25 +74,6 @@ def set_deterministic(device: torch.device) -> None:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-
-
-def join_group(device: torch.device):
-    """(rank, world size, the rank's device, the backend) under torchrun's
-    variables: the process group joined, NCCL where the ranks on this host
-    (``LOCAL_WORLD_SIZE``) have a card each, else gloo, whose collectives
-    stage CUDA tensors through host memory."""
-    world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
-    backend = "gloo"
-    if device.type == "cuda":
-        cards = torch.cuda.device_count()
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank))
-                              % cards)
-        torch.cuda.set_device(device)
-        local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-        backend = "nccl" if local <= cards else "gloo"
-    dist.init_process_group(backend, init_method="env://", world_size=world,
-                            rank=rank)
-    return rank, world, device, backend
 
 
 def main(argv=None) -> dict:
@@ -123,11 +104,7 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     rank, world = 0, 1
     if "WORLD_SIZE" in os.environ:
-        rank, world, device, backend = join_group(device)
-        if rank == 0 and device.type == "cuda" and backend == "gloo":
-            print(f"[group] gloo: {os.environ.get('LOCAL_WORLD_SIZE')} "
-                  f"local ranks share {torch.cuda.device_count()} cards; "
-                  f"collectives stage through host memory")
+        rank, world, device, _ = join_group(device)
     try:
         return _train(args, device, rank, world)
     finally:

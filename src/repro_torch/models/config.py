@@ -10,6 +10,7 @@ the kernel wrappers run their plain versions.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 IMPLS = ("ref", "kernel")
 _FROM_JAX_IMPL = {"xla": "ref", "pallas": "kernel"}
@@ -77,6 +78,11 @@ class ModelConfig:
     @property
     def n_ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim if self.d_inner else 0
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch hold a 524k context (O(1)-ish state)?"""
+        return self.family in ("ssm", "hybrid")
 
     @property
     def n_attn_applications(self) -> int:
@@ -148,6 +154,15 @@ SHAPES: dict[str, ShapeSpec] = {
     "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
+
+
+def cell_is_runnable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether a dry-run cell applies to the arch, and why not (the JAX
+    package's rule): long_500k only for the SSM and hybrid archs."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("skipped: full quadratic attention at 524k context; "
+                       "long_500k runs only for SSM/hybrid archs")
+    return True, ""
 
 
 def config_from_jax(jcfg) -> ModelConfig:

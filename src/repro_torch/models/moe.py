@@ -277,7 +277,8 @@ def _mesh_groups(mesh, data_axes):
             axis_group(mesh, data_axes))
 
 
-def moe_layer(params, x, cfg, mesh=None, data_axes: tuple = ("data",)):
+def moe_layer(params, x, cfg, mesh=None, data_axes: tuple = ("data",),
+              global_aux: bool = True):
     """The moe layer: x [B,S,d] (the rank's batch shard on a mesh) ->
     (y [B,S,d] in x.dtype, aux).  With ``mesh`` None (one card, the JAX
     package's one-device mesh) or a mesh whose ``model`` axis divides the
@@ -285,8 +286,12 @@ def moe_layer(params, x, cfg, mesh=None, data_axes: tuple = ("data",)):
     where the sequence splits over ``model``); on a mesh, ``params``'s
     expert leaves are the rank's shards [E_l, d / |data|, f] ([E_l, f, d /
     |data|] for w_down).  Otherwise the dense oracle, as the JAX package
-    falls back."""
+    falls back.  ``global_aux`` False (serving, which discards aux, as
+    the JAX program drops it unused): aux over the rank's rows, with no
+    collective."""
     n_model, m, model_g, data_g, dp_g = _mesh_groups(mesh, data_axes)
+    if not global_aux:
+        dp_g = None
     if cfg.n_experts % n_model:
         return moe_layer_dense(params, x, cfg, dp_g)
     topw, topi, aux = router_topk(params, x, cfg, dp_g)

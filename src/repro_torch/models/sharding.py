@@ -20,14 +20,15 @@ Everything is divisibility-checked against the mesh (``_ok``), real
 code serves the production meshes and a rank's run.
 
 Where the port computes on these layouts: a rank holds each state leaf's
-shard (:func:`shard`, :func:`shard_slices`), and the train step gathers
-the leaves it computes with (:func:`gather`), a stacked layer's as the
-layer runs.  The experts stay sharded over ``model`` (the moe layer's
-expert parallelism); every other layer computes on its weights gathered
-whole and on its rank's batch, which is
-the layout ``_constrain_act`` pins in the JAX package.  Heads and ``d_ff``
-split over ``model`` (tensor parallelism) and the sequence split of
-``seq_parallel`` are layouts of the same math the port does not take yet.
+shard (:func:`shard`, :func:`shard_slices`), and the train step and the
+serving steps gather the leaves they compute with (:class:`Gatherer`), a
+stacked layer's as the layer runs.  The experts stay sharded over
+``model`` (the moe layer's expert parallelism); every other layer computes
+on its weights gathered whole and on its rank's batch rows
+(:func:`batch_rows`), which is the layout ``_constrain_act`` pins in the
+JAX package.  Heads and ``d_ff`` split over ``model`` (tensor parallelism)
+and the sequence split of ``seq_parallel`` are layouts of the same math
+the port does not take yet.
 """
 from __future__ import annotations
 
@@ -39,6 +40,9 @@ import torch
 from repro_torch.distributed import collectives as coll
 from repro_torch.launch.mesh import axis_group, axis_sizes, coordinate
 from repro_torch.models.config import ModelConfig, ShapeSpec
+
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+STACKED = ("blocks", "first_blocks")       # [L, ...] layer leaves
 
 
 class P(tuple):
@@ -131,11 +135,29 @@ def param_specs(cfg: ModelConfig, params: Any, mesh) -> Any:
     return map_with_path(leaf_spec, params)
 
 
+def batch_axis(mesh, B: int, dp=None) -> Any:
+    """The axes a global batch of ``B`` rows splits over: ``dp`` (the
+    mesh's data axes by default) where B divides over them, else ``data``
+    where it divides over that, else None (every rank holds all rows)."""
+    dp = data_axes(mesh) if dp is None else tuple(dp)
+    return _ok(mesh, B, dp) or _ok(mesh, B, "data")
+
+
+def batch_rows(batch: Dict[str, torch.Tensor], mesh, dp=None):
+    """This rank's rows of each leaf of a global batch, as
+    :func:`batch_axis` splits them (views)."""
+    out = {}
+    for k, v in batch.items():
+        rows = shard_slices(P(batch_axis(mesh, v.shape[0], dp)),
+                            (v.shape[0],), mesh)[0]
+        out[k] = v[rows]
+    return out
+
+
 def batch_specs(cfg: ModelConfig, shape: ShapeSpec, mesh) -> Dict[str, P]:
     """Specs for every input the shape's step consumes."""
-    dp = data_axes(mesh)
     B = shape.global_batch
-    bspec = _ok(mesh, B, dp) or _ok(mesh, B, "data")
+    bspec = batch_axis(mesh, B)
     if shape.kind == "decode":
         return {"tokens": P(bspec, None)}
     if cfg.frontend == "patch_embeds":
@@ -220,6 +242,68 @@ def gather(x: torch.Tensor, spec: P, mesh,
         x = (coll.gather(x, dim, group) if differentiable
              else coll.all_gather(x, dim, group))
     return x
+
+
+def spec_at(specs, path) -> P:
+    """The spec of the leaf at ``path``; under a stacked ``path`` (see
+    ``STACKED``) that of one layer of it."""
+    for k in path:
+        specs = specs[k]
+    return P(*specs[1:]) if path[0] in STACKED else specs
+
+
+def model_param_specs(cfg: ModelConfig, mesh) -> Any:
+    """``param_specs`` of the arch's parameter tree on ``mesh``."""
+    from repro_torch.models import transformer
+    return param_specs(cfg, transformer.init_params(cfg, device="meta"),
+                       mesh)
+
+
+def shard_keeper(cfg: ModelConfig, mesh):
+    """``keep(path, leaf)`` for ``transformer.init_params``: this rank's
+    shard of each leaf as it is drawn (a stacked leaf a layer at a
+    time)."""
+    specs = model_param_specs(cfg, mesh)
+    return lambda path, x: shard(x, spec_at(specs, path), mesh)
+
+
+class Gatherer:
+    """The parameters a rank computes with, from its shards (FSDP): every
+    leaf gathered whole over the axes its spec splits, but the experts
+    where the moe layer runs expert-parallel (the experts divide the
+    ``model`` axis), which it keeps sharded over ``model`` and gathers
+    over ``data`` itself.  ``differentiable``: the gathers' adjoint is the
+    reduce-scatter (training)."""
+
+    def __init__(self, cfg: ModelConfig, mesh, differentiable: bool = True):
+        self.mesh, self.differentiable = mesh, differentiable
+        self.specs = model_param_specs(cfg, mesh)
+        n_model = axis_sizes(mesh).get("model", 1)
+        self.ep = bool(cfg.n_experts) and cfg.n_experts % n_model == 0
+
+    def leaf(self, path, x, spec):
+        if self.ep and "moe" in path and "shared" not in path \
+                and path[-1] in EXPERT_LEAVES:
+            if spec[-3] != "model" or "data" not in spec:
+                raise ValueError(f"{'/'.join(path)}: the experts must split "
+                                 f"over 'model' and 'data', not {spec}")
+            return x
+        return gather(x, spec, self.mesh, self.differentiable)
+
+    def fetch(self, name, layer):
+        """One layer of the stacked leaves ``name``, its shards gathered
+        (``transformer``'s stacks call it as the layer runs, inside a
+        layer's remat unit in training)."""
+        return map_with_path(
+            lambda path, x: self.leaf(path, x, spec_at(self.specs, path)),
+            layer, path=(name,))
+
+    def top(self, params):
+        """``params`` with every leaf outside the stacked layers
+        gathered; the stacked ones as they are, for :meth:`fetch`."""
+        return {k: v if k in STACKED else
+                map_with_path(self.leaf, v, self.specs[k], path=(k,))
+                for k, v in params.items()}
 
 
 def replica_axes(spec: P, mesh) -> Tuple[str, ...]:

@@ -16,17 +16,28 @@ under grad mode runs each layer body under ``torch.utils.checkpoint``,
 as the JAX code wraps its scan body in ``jax.checkpoint``.  MLA runs the
 reference attention only (``check_supported``).
 
-``forward_train`` takes the JAX entry point's ``mesh`` and ``dp``: on a
-mesh (``train/step.py``) a rank runs the whole stack on its batch shard
-with the weights gathered, and the moe layer runs its expert-parallel body
-across the mesh (``models/moe.py``).  The JAX package's activation
-constraints and sequence parallelism are layouts of the same math;
-:func:`_sp_mode` decides the mode as the JAX code does, and the port
-computes every mode with the sequence whole.  Serving (``prefill``,
-``decode_step``) runs on one card.
+Every entry point takes the JAX entry point's ``mesh`` and ``dp``.  On a
+mesh of several ranks each rank runs the whole stack on its batch rows
+(``train/step.py:local_batch`` in training, ``sharding.batch_rows`` in
+serving) with each parameter leaf held as its shard and gathered as its
+layer runs (``sharding.Gatherer``), and the moe layer runs its
+expert-parallel body across the mesh (``models/moe.py``).  In serving the
+entry points take the global batch (and the global decode tokens) and
+return the rank's rows of the logits; a decode cache is a
+:class:`ShardedCache`, each leaf the rank's shard under
+``sharding.cache_specs`` (its batch rows; heads, or else time, split over
+``model``; the ssm state's heads over ``model``), gathered over ``model``
+a layer at a time as the layer runs, the position a step writes put back
+into the shard.  A prefill returns its rows' cache whole over ``model``
+(``serve/step.py`` loads it into the shards).  A mesh of one rank is the
+one-card path.  The JAX package's activation constraints and sequence
+parallelism are layouts of the same math; :func:`_sp_mode` decides the
+mode as the JAX code does, and the port computes every mode with the
+sequence whole.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Tuple
 
 import torch
@@ -34,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import resolve_device
 from repro_torch.launch.mesh import axis_sizes
+from repro_torch.models import sharding as shd
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -94,6 +106,11 @@ def _maybe_remat(fn, cfg):
         return fn
     return lambda *args: checkpoint(fn, *args, use_reentrant=False,
                                     context_fn=moe_mod.remat_contexts)
+
+
+def on_mesh(mesh) -> bool:
+    """Whether ``mesh`` has several ranks (a mesh of one is one card)."""
+    return mesh is not None and mesh.size() > 1
 
 
 def _sp_mode(cfg, mesh, S: int, decode: bool) -> str:
@@ -228,10 +245,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
 # Blocks
 # ---------------------------------------------------------------------------
 def _dense_block(p, x, cfg, positions, *, cache=None, cache_len=None,
-                 kind="dense", mesh=None, dp=("data",)):
+                 kind="dense", mesh=None, dp=("data",), global_aux=True):
     """Residual attention (or MLA) block followed by the MLP or the MoE
-    layer (on ``mesh``, expert-parallel over it).  Returns (x, new_cache,
-    aux)."""
+    layer (on ``mesh``, expert-parallel over it; ``global_aux`` as
+    ``moe.moe_layer`` takes it).  Returns (x, new_cache, aux)."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.use_mla:
         if cache is None:
@@ -248,7 +265,8 @@ def _dense_block(p, x, cfg, positions, *, cache=None, cache_len=None,
     x = x + a
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if kind == "moe":
-        y, aux = moe_mod.moe_layer(p["moe"], h2, cfg, mesh, dp)
+        y, aux = moe_mod.moe_layer(p["moe"], h2, cfg, mesh, dp,
+                                   global_aux=global_aux)
     else:
         y, aux = mlp(p["mlp"], h2), torch.zeros((), dtype=F32,
                                                 device=x.device)
@@ -312,22 +330,26 @@ def _run_stack(cfg, params, x, positions, *, mode, cache=None,
                 x, aux = body(p, x)
                 aux_total = aux_total + aux
         return x, new_cache, aux_total
+    layers = None if cache is None else _Layers(cache)
     for key, blocks, n, k in (("first", "first_blocks", n_first, first_kind),
                               ("layers", "blocks", cfg.n_layers - n_first,
                                kind)):
         kvs = []
         for i in range(n):
-            c_i = None if cache is None else _layer(cache[key], i)
-            x, c, aux = _dense_block(_layer(params[blocks], i), x, cfg,
-                                     positions, cache=c_i,
-                                     cache_len=cache_len, kind=k)
+            c_i = None if layers is None else layers.get(key, i)
+            x, c, aux = _dense_block(
+                _fetched(fetch, blocks, _layer(params[blocks], i)), x, cfg,
+                positions, cache=c_i, cache_len=cache_len, kind=k,
+                mesh=mesh, dp=dp, global_aux=False)
             aux_total = aux_total + aux
-            kvs.append(c)
-        if not n:
-            continue
-        new_cache[key] = (cache[key] if mode == "decode"    # in place
-                          else _stack(kvs))
-    return x, new_cache, aux_total
+            if layers is None:
+                kvs.append(c)
+            else:
+                layers.put(key, i, c, slice(cache_len,
+                                            cache_len + x.shape[1]))
+        if n and cache is None:
+            new_cache[key] = _stack(kvs)
+    return x, (new_cache if cache is None else cache), aux_total  # in place
 
 
 def _fetched(fetch, name, layer):
@@ -363,40 +385,39 @@ def _run_ssm_stack(cfg, params, x, positions, *, mode, cache, cache_len,
             x = body(p, x, i)
         return x, {}, torch.zeros((), dtype=F32, device=x.device)
 
+    layers = None if cache is None else _Layers(cache)
     attn_cache = None
-    if hybrid:
-        attn_cache = (cache["attn"] if cache is not None else
-                      _hybrid_attn_cache(cfg, B, S, cfg.n_attn_applications,
-                                         x.device))
+    if hybrid and cache is None:
+        attn_cache = _hybrid_attn_cache(cfg, B, S, cfg.n_attn_applications,
+                                        x.device)
     states = []
     app_idx = 0
     for i in range(cfg.n_layers):
-        s_l = None if cache is None else _layer(cache["ssm"], i)
-        x, s_new = _ssm_res_block(_layer(params["blocks"], i), x, cfg,
-                                  mode=ssm_mode, state=s_l)
-        states.append(s_new)
+        s_l = None if layers is None else layers.get("ssm", i)
+        x, s_new = _ssm_res_block(
+            _fetched(fetch, "blocks", _layer(params["blocks"], i)), x, cfg,
+            mode=ssm_mode, state=s_l)
+        if layers is None:
+            states.append(s_new)
+        else:
+            layers.put("ssm", i, s_new)
         if hybrid and i % cfg.attn_every == cfg.attn_every - 1:
-            if decode:
-                c_a = _layer(attn_cache, app_idx)
-                x, c_new, _ = _dense_block(params["shared_attn"], x, cfg,
-                                           positions, cache=c_a,
-                                           cache_len=cache_len)
+            if layers is not None:
+                x, c_new, _ = _dense_block(
+                    params["shared_attn"], x, cfg, positions,
+                    cache=layers.get("attn", app_idx), cache_len=cache_len)
+                layers.put("attn", app_idx, c_new,
+                           slice(cache_len, cache_len + x.shape[1]))
             else:
                 x, c_new, _ = _dense_block(params["shared_attn"], x, cfg,
                                            positions)
-            if not decode:
                 for full, one in zip(attn_cache, c_new):
                     full[app_idx] = one.to(full.dtype)
             app_idx += 1
 
-    new_cache: Dict[str, Any] = {}
-    if cache is not None:
-        for full, one in zip(cache["ssm"], zip(*states)):
-            for i, s in enumerate(one):
-                full[i] = s.to(full.dtype)
-        new_cache["ssm"] = cache["ssm"]
-    else:
-        new_cache["ssm"] = _stack(states)
+    if cache is not None:                     # updated in place
+        return x, cache, torch.zeros((), dtype=F32, device=x.device)
+    new_cache: Dict[str, Any] = {"ssm": _stack(states)}
     if hybrid:
         new_cache["attn"] = attn_cache
     return x, new_cache, torch.zeros((), dtype=F32, device=x.device)
@@ -425,26 +446,55 @@ def forward_train(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
 
-def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
-    """Returns (last-position logits [B,Vp] f32, cache, seq_len)."""
+def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
+            mesh=None, dp: tuple = ("data",), gatherer=None):
+    """Returns (last-position logits [B,Vp] f32, cache, seq_len).  On a
+    mesh of several ranks, ``params`` the rank's shards and ``batch`` the
+    global batch: the logits and the cache (whole over ``model``) of the
+    rank's rows.  ``gatherer``: the ``sharding.Gatherer`` that gathers
+    the shards (one is made where none is given)."""
+    fetch = None
+    if on_mesh(mesh):
+        g = gatherer or shd.Gatherer(cfg, mesh, differentiable=False)
+        params, fetch = g.top(params), g.fetch
+        batch = shd.batch_rows(batch, mesh, dp)
     x = _assemble_input(params, batch, cfg)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
-    x, cache, _ = _run_stack(cfg, params, x, positions, mode="prefill")
+    x, cache, _ = _run_stack(cfg, params, x, positions, mode="prefill",
+                             mesh=mesh, dp=dp, fetch=fetch)
     h_last = rmsnorm(x[:, -1], params["final_norm"], cfg.norm_eps)
     logits = (h_last.to(BF16) @ params["unembed"].to(BF16)).to(F32)
     return logits, cache, S
 
 
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                cache, cache_len: int):
+                cache, cache_len: int, mesh=None, dp: tuple = ("data",),
+                gatherer=None):
     """One decode step.  tokens [B,1] -> (logits [B,Vp] f32, cache), the
-    cache updated in place at position ``cache_len``."""
+    cache updated in place at position ``cache_len``.  On a mesh of
+    several ranks, ``params`` the rank's shards, ``tokens`` the global
+    tokens and ``cache`` the rank's :class:`ShardedCache`: the logits of
+    the rank's rows.  ``gatherer`` as :func:`prefill`'s."""
     cache_len = int(cache_len)
+    fetch = None
+    if on_mesh(mesh):
+        if not isinstance(cache, ShardedCache) or cache.mesh is not mesh:
+            raise TypeError("on a mesh the decode cache is the rank's "
+                            "ShardedCache on that mesh (init_cache(..., "
+                            "mesh=))")
+        rows = shd.batch_axis(mesh, tokens.shape[0], dp)
+        if cache.rows != rows:
+            raise ValueError(f"the cache's rows split over {cache.rows}, "
+                             f"the batch's over {rows}")
+        g = gatherer or shd.Gatherer(cfg, mesh, differentiable=False)
+        params, fetch = g.top(params), g.fetch
+        tokens = shd.batch_rows({"tokens": tokens}, mesh, dp)["tokens"]
     x = embed_tokens(params, tokens, cfg)
     positions = cache_len + torch.arange(x.shape[1], device=x.device)
     x, new_cache, _ = _run_stack(cfg, params, x, positions, mode="decode",
-                                 cache=cache, cache_len=cache_len)
+                                 cache=cache, cache_len=cache_len,
+                                 mesh=mesh, dp=dp, fetch=fetch)
     h = rmsnorm(x[:, -1], params["final_norm"], cfg.norm_eps)
     logits = (h.to(BF16) @ params["unembed"].to(BF16)).to(F32)
     return logits, new_cache
@@ -453,9 +503,13 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Decode-cache construction
 # ---------------------------------------------------------------------------
-def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device=None):
-    """Empty decode cache sized for ``max_len`` positions."""
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device=None,
+               mesh=None):
+    """Empty decode cache sized for ``max_len`` positions; on a mesh of
+    several ranks, the rank's :class:`ShardedCache` of it."""
     device = resolve_device(device)
+    if on_mesh(mesh):
+        return ShardedCache.zeros(cfg, batch_size, max_len, device, mesh)
     first_kind, kind, n_first = _block_kinds(cfg)
     z = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=device)
     if kind == "ssm":
@@ -480,3 +534,78 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device=None):
     if n_first:
         cache["first"] = attn_cache(n_first)
     return cache
+
+
+def _shard_shape(shape, spec, mesh):
+    sizes = axis_sizes(mesh)
+    return tuple(d // math.prod(sizes[a] for a in shd._axes_of(e))
+                 for d, e in zip(shape, spec)) + tuple(shape[len(spec):])
+
+
+class ShardedCache(dict):
+    """A rank's decode cache on a mesh: ``init_cache``'s tree (``"ssm"``,
+    ``"attn"``, ``"layers"``, ``"first"``: tuples of stacked leaves), each
+    leaf the rank's shard under ``sharding.cache_specs`` (``specs``, the
+    tree of specs; ``rows``, the axes of its batch rows)."""
+
+    def __init__(self, leaves, specs, mesh, rows):
+        super().__init__(leaves)
+        self.specs, self.mesh, self.rows = specs, mesh, rows
+
+    @classmethod
+    def zeros(cls, cfg, batch_size, max_len, device, mesh):
+        shapes = init_cache(cfg, batch_size, max_len, device="meta")
+        specs = shd.cache_specs(cfg, shapes, mesh, batch_size)
+        leaves = shd.map_specs(lambda sp, a: torch.zeros(
+            _shard_shape(a.shape, sp, mesh), dtype=a.dtype, device=device),
+            specs, shapes)
+        rows = shd.batch_axis(mesh, batch_size)
+        return cls(leaves, specs, mesh, rows)
+
+
+class _Layers:
+    """Layer i of a decode cache as the stack runs.  One card (a plain
+    tree): views of the leaves, which attention updates in place; a new
+    state is copied in.  A :class:`ShardedCache`: the layer of the rank's
+    shard gathered over ``model`` (the rank's rows, whole heads and time),
+    and what the layer writes put back into the shard."""
+
+    def __init__(self, cache):
+        self.cache = cache
+        self.mesh = cache.mesh if isinstance(cache, ShardedCache) else None
+
+    def _spec(self, key, j):
+        """The spec of one layer of leaf j of ``key``, over the rank's
+        rows: the layer and batch entries dropped."""
+        return shd.P(None, *self.cache.specs[key][j][2:])
+
+    def _gathered(self, key, j) -> bool:
+        """Whether leaf j of ``key`` splits over ``model`` on a mesh."""
+        return self.mesh is not None and any(
+            e is not None for e in self._spec(key, j))
+
+    def get(self, key, i):
+        return tuple(shd.gather(a[i], self._spec(key, j), self.mesh,
+                                differentiable=False)
+                     if self._gathered(key, j) else a[i]
+                     for j, a in enumerate(self.cache[key]))
+
+    def put(self, key, i, new, time=None):
+        """Layer i's leaves ``new`` (as :meth:`get` gave them, written in
+        place, or new tensors) into the cache: positions ``time`` (a
+        slice) of an attention leaf [b, T, ...], or the whole of a
+        state."""
+        for j, (full, one) in enumerate(zip(self.cache[key], new)):
+            if not self._gathered(key, j):
+                if time is None:
+                    full[i] = one.to(full.dtype)
+                continue                 # attention wrote into the view
+            sl = shd.shard_slices(self._spec(key, j), one.shape, self.mesh)
+            if time is None:
+                full[i] = one[sl].to(full.dtype)
+                continue
+            t = sl[1]
+            lo, hi = max(time.start, t.start), min(time.stop, t.stop)
+            if lo < hi:
+                full[i][:, lo - t.start:hi - t.start] = \
+                    one[(sl[0], slice(lo, hi)) + sl[2:]].to(full.dtype)

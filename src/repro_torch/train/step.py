@@ -54,8 +54,7 @@ from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.optimizer import tree_leaves, tree_map, tree_unflatten
 
 F32 = torch.float32
-EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
-STACKED = ("blocks", "first_blocks")       # [L, ...] layer leaves
+STACKED = shd.STACKED
 
 
 class TrainState(NamedTuple):
@@ -103,14 +102,6 @@ def gather_train_state(state: TrainState, cfg: ModelConfig,
         state_specs(cfg, mesh), state)
 
 
-def _spec_at(specs, path) -> shd.P:
-    """The spec of the leaf at ``path``; under a stacked ``path`` (see
-    ``STACKED``) that of one layer of it."""
-    for k in path:
-        specs = specs[k]
-    return shd.P(*specs[1:]) if path[0] in STACKED else specs
-
-
 def init_train_state(cfg: ModelConfig, seed: int = 0, device=None,
                      mesh=None) -> TrainState:
     """f32 master parameters from ``transformer.init_params(seed)`` and
@@ -118,10 +109,7 @@ def init_train_state(cfg: ModelConfig, seed: int = 0, device=None,
     ``mesh``, this rank's shards of them, cut from each leaf (a stacked
     leaf one layer at a time) as it is drawn, so the whole state is never
     held."""
-    keep = None
-    if mesh is not None:
-        specs = state_specs(cfg, mesh).params
-        keep = lambda path, x: shd.shard(x, _spec_at(specs, path), mesh)
+    keep = None if mesh is None else shd.shard_keeper(cfg, mesh)
     params = transformer.init_params(cfg, seed, device, masters=True,
                                      keep=keep)
     return TrainState(params=params, opt=opt_mod.init_opt_state(params))
@@ -208,38 +196,19 @@ class _MeshGrad:
         self.mesh, self.dp = mesh, dp
         self.specs = state_specs(cfg, mesh).params
         self.loss_fn = make_loss_fn(cfg, mesh, dp, aux_weight)
-        n_model = axis_sizes(mesh).get("model", 1)
-        # the moe layer's expert-parallel body takes its experts sharded
-        self.ep = cfg.n_experts and cfg.n_experts % n_model == 0
+        self.gather = shd.Gatherer(cfg, mesh)
         self.sizes = axis_sizes(mesh)
 
-    def _whole(self, path, x, spec):
-        if self.ep and "moe" in path and "shared" not in path \
-                and path[-1] in EXPERT_LEAVES:
-            if spec[-3] != "model" or "data" not in spec:
-                raise ValueError(f"{'/'.join(path)}: the experts must split "
-                                 f"over 'model' and 'data', not {spec}")
-            return x
-        return shd.gather(x, spec, self.mesh)
-
-    def fetch(self, name, layer):
-        """One layer of the stacked leaves ``name``, its shards gathered
-        (``transformer.forward_train`` calls it inside the layer's remat
-        unit, so the backward gathers the layer again and no more than a
-        layer's gathered leaves are alive at once)."""
-        return shd.map_with_path(
-            lambda path, x: self._whole(path, x, _spec_at(self.specs, path)),
-            layer, path=(name,))
-
     def __call__(self, params, batch):
+        """(loss, metrics, grads): the leaves gathered (a stacked layer's
+        by ``Gatherer.fetch`` inside the layer's remat unit, so the
+        backward gathers the layer again and no more than a layer's
+        gathered leaves are alive at once)."""
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         with torch.enable_grad():
-            whole = {k: v if k in STACKED else
-                     shd.map_with_path(self._whole, v, self.specs[k],
-                                       path=(k,))
-                     for k, v in live.items()}
             loss, metrics = self.loss_fn(
-                whole, local_batch(batch, self.mesh, self.dp), self.fetch)
+                self.gather.top(live), local_batch(batch, self.mesh, self.dp),
+                self.gather.fetch)
             grads = _grads(loss, live, 1.0 / self.mesh.size())
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 grads)

@@ -3,7 +3,8 @@ package's ``core/bridge.py``.
 
 * ``workload_from_jobs``: every container array exactly equal to JAX's
   (the body is numpy from the seed in both), for the example's job mix
-  and others, at its own capacity and a larger one;
+  and others, at its own capacity and a larger one, both packages given
+  the JAX default ``gpu_speed_flops`` (197e12) explicitly;
 * ``job_from_dryrun`` / ``jobs_from_results`` on a results JSON written
   here (the dry-run's ``experiments/dryrun_results.json`` is not in the
   repo): the same jobs, in the same order;
@@ -43,6 +44,9 @@ from repro_torch.core.convert import assert_state_close  # noqa: E402
 EXAMPLE = os.path.join(os.path.dirname(__file__), "..", "examples",
                        "schedule_training_cluster.py")
 POLICIES = ["round", "performance_first", "jobgroup", "netaware"]
+# the JAX package's default work-unit clock (a TPU v5e's bf16 peak),
+# passed to both packages: the port's default is the H100's
+V5E_FLOPS = 197e12
 RTOL, ATOL = 1e-5, 1e-4
 
 
@@ -83,9 +87,11 @@ MIXES = {
 def test_workload_from_jobs_equals_jax(mix, seed, capacity):
     jobs = MIXES[mix]()
     want = jbridge.workload_from_jobs(jobs, example_cfg(JSimConfig),
-                                      capacity=capacity, seed=seed)
+                                      capacity=capacity, seed=seed,
+                                      gpu_speed_flops=V5E_FLOPS)
     got = bridge.workload_from_jobs(port_jobs(jobs), example_cfg(SimConfig),
                                     capacity=capacity, seed=seed,
+                                    gpu_speed_flops=V5E_FLOPS,
                                     device="cpu")
     assert got._fields == want._fields
     for name, g, w in zip(got._fields, got, want):
@@ -151,7 +157,8 @@ def test_job_from_dryrun_counts_active_parameters():
 def jax_example_run(policy):
     cfg = example_cfg(JSimConfig)
     spec, net = jnetwork(cfg, bw=10000.0)
-    conts = jbridge.workload_from_jobs(example_jobs(), cfg)
+    conts = jbridge.workload_from_jobs(example_jobs(), cfg,
+                                       gpu_speed_flops=V5E_FLOPS)
     final, metrics = jrun(jinit(jhosts(), conts, net), cfg, jpolicy(policy),
                           spec.n_hosts, spec.n_nodes, cfg.horizon)
     return (jax.device_get(final), jax.device_get(metrics),
@@ -164,6 +171,7 @@ def test_example_jobs_run_as_in_jax(policy):
     cfg = example_cfg(SimConfig)
     spec, net = build_paper_network(cfg, bw=10000.0, device="cpu")
     conts = bridge.workload_from_jobs(port_jobs(example_jobs()), cfg,
+                                      gpu_speed_flops=V5E_FLOPS,
                                       device="cpu")
     final, metrics = run_sim(init_sim(build_paper_hosts(device="cpu"), conts,
                                       net),

@@ -47,6 +47,31 @@ Contracts:
   draws on one process, leaf for leaf;
 * ``launch.train --model-parallel 2`` runs as 4 processes under
   ``torchrun``.
+
+Serving on the mesh (the same spawned workers and JAX subprocess): reduced
+smollm-360m, olmoe-1b-7b ('psum' and 'a2a' with ``capacity_factor`` 2.0),
+zamba2-1.2b and deepseek-v2 at (2, 2), from JAX's ``init_params(PRNGKey
+(0))``, a prompt batch of 4 x 32 and 4 decode steps, against JAX's jitted
+``make_prefill_step`` and ``make_decode_step`` with ``mesh=`` at (2, 2)
+(JAX generates greedily; the port is fed JAX's tokens, its routing held
+to JAX's rows at ``SERVE_TIE_ULPS``):
+* each rank's prefill and decode logits within ``MODEL_ULPS`` (4) bf16
+  ulps of the largest magnitude of JAX's (zamba2's and deepseek's decode:
+  ``DRIFT_ULPS``, 8), and its greedy tokens JAX's wherever JAX's top-2
+  margin exceeds twice that bound;
+* each rank's decode cache shard (after the prefill and the 4 steps) the
+  slice JAX's ``NamedSharding`` of ``cache_specs`` gives its coordinate,
+  within the same bounds;
+* each rank's logits and cache against the port's one-process run on
+  its rows, within ``MODEL_ULPS`` (every case but 'a2a', whose drops
+  follow each model rank's chunk of the sequence);
+* ``launch.serve --model-parallel 2`` runs as 4 processes under
+  ``torchrun``.
+
+The shape-only trace prices the real program: on every rank the
+``(op, bytes, group size)`` records of reduced olmoe's train step at (2,
+2) ('psum') equal those of the same step traced on ``meta`` for that rank
+of ``ShapeMesh((2, 2))``.
 """
 import json
 import os
@@ -67,6 +92,21 @@ GRAD_ULPS = 8
 LOSS_RTOL = 1e-3
 MESH_TIE_ULPS = 4
 STEP_TIE_ULPS = 16
+MODEL_ULPS = 4
+SB, SS, ST = 4, 32, 4          # serving: batch, prompt, decode steps
+# JAX's own (2, 2) serving program is not its (1, 1) program: the same
+# weights and tokens (capacity factor 8, so no assignment is dropped
+# either way) give decode logits up to 4.19 bf16 ulps of their largest
+# magnitude apart on reduced zamba2-1.2b (its cache 5.17), 5.8-9.3 on
+# reduced deepseek-v2's prefill and first steps (2.7 on smollm), and
+# router logits move as far.  So the port's routing is held to JAX's at
+# (2, 2) within SERVE_TIE_ULPS, and zamba2's and deepseek's decode logits
+# and cache within DRIFT_ULPS (4.4 and 5.0 measured), the others' within
+# MODEL_ULPS.  The port's (2, 2) program is its one-process program on
+# each rank's rows (test_serving_matches_one_process, within MODEL_ULPS;
+# 0 ulps measured), so the excess is JAX's (2, 2) program's drift
+SERVE_TIE_ULPS = 8
+DRIFT_ULPS = 8
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 CASES = [
@@ -84,6 +124,21 @@ CASES = [
          dp=["pod", "data"], compress=True, elastic=True),
 ]
 NAMES = [c["name"] for c in CASES]
+SERVE_CASES = [
+    dict(name="serve_smollm", arch="smollm_360m", over={}),
+    dict(name="serve_olmoe_psum", arch="olmoe_1b_7b", over={}),
+    dict(name="serve_olmoe_a2a", arch="olmoe_1b_7b",
+         over={"moe_impl": "a2a", "capacity_factor": 2.0}),
+    dict(name="serve_zamba2", arch="zamba2_1_2b", over={},
+         decode_ulps=DRIFT_ULPS),
+    dict(name="serve_deepseek", arch="deepseek_v2_236b", over={},
+         decode_ulps=DRIFT_ULPS),
+]
+SERVE_NAMES = [c["name"] for c in SERVE_CASES]
+# the cases whose (2, 2) program is the one-process program on each rank's
+# rows: a2a drops over each model rank's chunk of the sequence, which no
+# one-process run of those rows reproduces
+ONE_PROCESS_NAMES = [n for n in SERVE_NAMES if n != "serve_olmoe_a2a"]
 
 JAX_SCRIPT = r"""
 import os, sys
@@ -104,6 +159,7 @@ from repro.train.step import TrainState, init_train_state, make_loss_fn
 out, cases, opt_kw, B, S = (sys.argv[1], json.loads(sys.argv[2]),
                             json.loads(sys.argv[3]), int(sys.argv[4]),
                             int(sys.argv[5]))
+serve_cases, (SB, SS, ST) = json.loads(sys.argv[6]), json.loads(sys.argv[7])
 ROUTES = []
 orig = jmoe.router_topk
 def wrapped(params, x, cfg):
@@ -205,6 +261,66 @@ for case in cases:
                                        [data.batch_at(2)], False)
         res["elastic"] = {"ckpt": d, "step": n, "loss": loss[0],
                           "routes": routes[0], "batch": data.batch_at(2)}
+    with open(os.path.join(out, case["name"] + ".tmp"), "wb") as f:
+        pickle.dump(res, f)
+    os.replace(os.path.join(out, case["name"] + ".tmp"),
+               os.path.join(out, case["name"] + ".pkl"))
+import jax.numpy as jnp
+from repro.models import transformer as jtr
+from repro.serve.step import (_load_prefill, make_decode_step,
+                              make_prefill_step)
+
+def serve_routes(cfg):
+    jax.effects_barrier()
+    n = cfg.n_layers - cfg.first_dense if cfg.n_experts else 0
+    got = list(ROUTES)
+    ROUTES.clear()
+    assert len(got) == n, (len(got), n)
+    return got
+
+def cache_layout(cache, cfg, mesh):
+    coords = {d.id: tuple(int(i) for i in np.argwhere(mesh.devices == d)[0])
+              for d in mesh.devices.flat}
+    specs = jax.tree.leaves(shd.cache_specs(cfg, cache, mesh, SB),
+                            is_leaf=lambda x: isinstance(x, P))
+    out = []
+    for leaf, spec in zip(jax.tree.leaves(cache), specs):
+        m = NamedSharding(mesh, spec).devices_indices_map(leaf.shape)
+        out.append((np.asarray(leaf.astype(jnp.float32)),
+                    {coords[d.id]: [[sl.start or 0, leaf.shape[k]
+                                     if sl.stop is None else sl.stop]
+                                    for k, sl in enumerate(idx)]
+                     for d, idx in m.items()}))
+    return out
+
+for case in serve_cases:
+    cfg = dataclasses.replace(get_reduced(case["arch"]), **case["over"])
+    params = jax.jit(jtr.init_params, static_argnums=0)(
+        cfg, jax.random.PRNGKey(0))
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab, (SB, SS)).astype(np.int32)
+    mesh = compat_mesh((2, 2), ("data", "model"))
+    ROUTES.clear()
+    with mesh:
+        ps = jax.device_put(params, shd.to_shardings(
+            shd.param_specs(cfg, params, mesh), mesh))
+        tok, logits, pfc = jax.jit(make_prefill_step(
+            cfg, mesh=mesh, dp=("data",)))(ps, {"tokens": tokens})
+        routes = [serve_routes(cfg)]
+        cache = _load_prefill(cfg, jtr.init_cache(cfg, SB, SS + ST), pfc, SS)
+        dec = jax.jit(make_decode_step(cfg, mesh=mesh, dp=("data",)))
+        feed, step_logits = [np.asarray(tok)], []
+        for t in range(ST):
+            tok, lg, cache = dec(ps, tok[:, None], cache,
+                                 jnp.array(SS + t, jnp.int32))
+            routes.append(serve_routes(cfg))
+            step_logits.append(np.asarray(lg))
+            feed.append(np.asarray(tok))
+        res = {"params": np_tree(params), "tokens": tokens,
+               "logits": np.asarray(logits),
+               "step_logits": np.stack(step_logits, 1),
+               "feed": np.stack(feed, 1), "routes": routes,
+               "cache": cache_layout(cache, cfg, mesh)}
     with open(os.path.join(out, case["name"] + ".tmp"), "wb") as f:
         pickle.dump(res, f)
     os.replace(os.path.join(out, case["name"] + ".tmp"),
@@ -315,6 +431,9 @@ def _rank_run(rank, out):
                         shd.shard_slices(spec, leaf.shape, mesh)]
                   for (key, spec), (_, leaf) in zip(
                       _flat_keys(specs.params), _flat_keys(shapes))}
+        if case["name"] == "olmoe_psum":
+            mine["records"] = _records_check(rank, cfg, mesh, dp, state,
+                                             batch0, replay)
         state, losses = train(cfg, state, mesh, dp, res["batches"],
                               res["routes"], case["compress"],
                               MESH_TIE_ULPS)
@@ -328,7 +447,111 @@ def _rank_run(rank, out):
         with open(os.path.join(out, f"{case['name']}.rank{rank}.pkl"),
                   "wb") as f:
             pickle.dump(mine, f)
+    for case in SERVE_CASES:
+        mine = _serve_run(rank, case, _wait_for(os.path.join(
+            out, case["name"] + ".pkl")))
+        with open(os.path.join(out, f"{case['name']}.rank{rank}.pkl"),
+                  "wb") as f:
+            pickle.dump(mine, f)
     dist.barrier()
+
+
+def _records_check(rank, cfg, mesh, dp, state, batch, replay):
+    """(the collectives of one train step on this rank, those of the step
+    traced on meta for this rank of ShapeMesh((2, 2)))."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.models import moe
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as tstep
+    opt = topt.OptimizerConfig(**OPT)
+    with coll.recording() as real, moe.log_routing(
+            replay=replay, tie_ulps=MESH_TIE_ULPS):
+        tstep.make_train_step(cfg, opt, mesh=mesh, dp=dp)(state, batch)
+    smesh = ShapeMesh((2, 2), ("data", "model"), rank)
+    meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in batch.items()}
+    with coll.recording() as shape_only:
+        tstep.make_train_step(cfg, opt, mesh=smesh, dp=dp)(
+            tstep.init_train_state(cfg, 0, "meta", smesh), meta)
+    return {"real": real, "shape_only": shape_only}
+
+
+def _serve_run(rank, case, res):
+    """One rank's serving at (2, 2) from JAX's parameters: the prefill and
+    ST decode steps fed JAX's tokens, routing replayed from JAX's rows;
+    the logits of the rank's rows and its cache shards (the dense case:
+    the one-process run's logits too)."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.mesh import compat_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import sharding as shd
+    from repro_torch.models import transformer
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.serve.step import (_load_prefill, make_decode_step,
+                                        make_prefill_step)
+    cfg = dataclasses.replace(get_reduced(case["arch"]), **case["over"])
+    mesh = compat_mesh((2, 2), ("data", "model"), "cpu")
+    dp = ("data",)
+    whole = params_from_jax(res["params"], cfg, "cpu")
+    params = shd.map_specs(lambda sp, x: shd.shard(x, sp, mesh),
+                           shd.model_param_specs(cfg, mesh), whole)
+    rows = shd.shard_slices(shd.P(shd.batch_axis(mesh, SB, dp)), (SB,),
+                            mesh)[0]
+    local = lambda routes: [r[rows] for r in routes]
+    tokens = torch.from_numpy(res["tokens"])
+    with moe.log_routing(replay=local(res["routes"][0]),
+                         tie_ulps=SERVE_TIE_ULPS):
+        _, logits, pfc = make_prefill_step(cfg, mesh, dp)(
+            params, {"tokens": tokens})
+    cache = _load_prefill(cfg, transformer.init_cache(
+        cfg, SB, SS + ST, "cpu", mesh), pfc, SS)
+    decode = make_decode_step(cfg, mesh, dp)
+    steps = []
+    for t in range(ST):
+        feed = torch.from_numpy(res["feed"][:, t])[:, None]
+        with moe.log_routing(replay=local(res["routes"][t + 1]),
+                             tie_ulps=SERVE_TIE_ULPS):
+            _, lg, cache = decode(params, feed, cache, SS + t)
+        steps.append(lg)
+    mine = {"coord": list(mesh.get_coordinate()),
+            "rows": [rows.start, rows.stop], "logits": logits.numpy(),
+            "step_logits": torch.stack(steps, 1).numpy(),
+            "cache": [a.float().numpy() for k in sorted(cache)
+                      for a in cache[k]]}
+    if case["name"] in ONE_PROCESS_NAMES:
+        mine["one_process"] = _serve_one_process(cfg, whole, tokens[rows],
+                                                 res, local)
+    return mine
+
+
+def _serve_one_process(cfg, params, tokens, res, local):
+    """The port's one-process run of ``_serve_run``'s program on the
+    rank's rows from the whole parameters: the prefill's and the ST
+    decode steps' logits and the whole cache of those rows, routing
+    replayed from JAX's rows (``local``)."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer
+    from repro_torch.serve.step import _load_prefill
+    B = tokens.shape[0]
+    with moe.log_routing(replay=local(res["routes"][0]),
+                         tie_ulps=SERVE_TIE_ULPS):
+        logits, pfc, _ = transformer.prefill(cfg, params, {"tokens": tokens})
+    cache = _load_prefill(cfg, transformer.init_cache(cfg, B, SS + ST,
+                                                      "cpu"), pfc, SS)
+    steps = []
+    for t in range(ST):
+        feed = torch.from_numpy(local([res["feed"][:, t]])[0])[:, None]
+        with moe.log_routing(replay=local(res["routes"][t + 1]),
+                             tie_ulps=SERVE_TIE_ULPS):
+            lg, cache = transformer.decode_step(cfg, params, feed, cache,
+                                                SS + t)
+        steps.append(lg)
+    return {"logits": logits.numpy(),
+            "step_logits": torch.stack(steps, 1).numpy(),
+            "cache": [a.float().numpy() for k in sorted(cache)
+                      for a in cache[k]]}
 
 
 def _elastic(rank, out, cfg, mesh, state, res, train):
@@ -438,7 +661,8 @@ def runs(tmp_path_factory):
     jlog = open(os.path.join(out, "jax.log"), "w")
     procs = [subprocess.Popen(
         [sys.executable, "-c", JAX_SCRIPT, out, json.dumps(CASES),
-         json.dumps(OPT), str(B), str(S)], env=env, stdout=jlog,
+         json.dumps(OPT), str(B), str(S), json.dumps(SERVE_CASES),
+         json.dumps([SB, SS, ST])], env=env, stdout=jlog,
         stderr=subprocess.STDOUT)]
     port = _free_port()
     logs = [jlog]
@@ -621,6 +845,134 @@ def test_launch_train_runs_as_processes(tmp_path):
         assert z[".params/embed"].shape == (256, 64)
     assert sorted(os.listdir(os.path.join(ck, "step_2"))) == [
         "manifest.json", "shard_0.npz"]
+
+
+def test_shape_only_trace_records_the_real_collectives(runs):
+    """Reduced olmoe's train step at (2, 2): the (op, bytes, group size)
+    records of each rank's real run equal those of the step traced on meta
+    for that rank of ShapeMesh((2, 2)), in order."""
+    for rank in range(WORLD):
+        rec = load(runs, "olmoe_psum", f"rank{rank}")["records"]
+        assert len(rec["real"]) > 0, rank
+        assert {op for op, _, _ in rec["real"]} == {"all-reduce",
+                                                    "all-gather"}, rank
+        assert rec["real"] == rec["shape_only"], rank
+
+
+def ulp_bf16(m: float) -> float:
+    return 2.0 ** (np.floor(np.log2(m)) - 7)
+
+
+def model_tol(ref, ulps=MODEL_ULPS) -> float:
+    return ulps * ulp_bf16(max(float(np.abs(ref).max()), 1e-30))
+
+
+def top2_margin(logits):
+    part = np.sort(logits, axis=-1)
+    return part[..., -1] - part[..., -2]
+
+
+@pytest.mark.parametrize("name", SERVE_NAMES)
+def test_serving_matches_jax(runs, name):
+    """Each rank's rows of the prefill and decode logits within MODEL_ULPS
+    of JAX's largest magnitude (zamba2's and deepseek's decode:
+    DRIFT_ULPS);
+    its greedy tokens JAX's where JAX's top-2 margin is clear."""
+    j = load(runs, name, "jax")
+    case = SERVE_CASES[SERVE_NAMES.index(name)]
+    for rank in range(WORLD):
+        mine = load(runs, name, f"rank{rank}")
+        rows = slice(*mine["rows"])
+        for what, got, want, ulps in (
+                ("prefill", mine["logits"], j["logits"], MODEL_ULPS),
+                ("decode", mine["step_logits"], j["step_logits"],
+                 case.get("decode_ulps", MODEL_ULPS))):
+            tol = model_tol(want, ulps)
+            np.testing.assert_allclose(got, want[rows], rtol=0, atol=tol,
+                                       err_msg=f"{name} rank {rank} {what}")
+            clear = top2_margin(want[rows]) > 2 * tol
+            feed = j["feed"][rows]
+            toks = feed[:, 0] if what == "prefill" else feed[:, 1:]
+            assert (np.argmax(got, -1) == toks)[clear].all(), (rank, what)
+
+
+@pytest.mark.parametrize("name", SERVE_NAMES)
+def test_serving_cache_shards_are_jax_slices(runs, name):
+    """Each rank's decode cache shard is the slice of JAX's cache that
+    JAX's NamedSharding of cache_specs gives its coordinate (within
+    MODEL_ULPS; zamba2's and deepseek's DRIFT_ULPS)."""
+    j = load(runs, name, "jax")
+    case = SERVE_CASES[SERVE_NAMES.index(name)]
+    for rank in range(WORLD):
+        mine = load(runs, name, f"rank{rank}")
+        coord = tuple(mine["coord"])
+        assert len(mine["cache"]) == len(j["cache"])
+        for k, (got, (leaf, layout)) in enumerate(zip(mine["cache"],
+                                                      j["cache"])):
+            want = leaf[tuple(slice(a, b) for a, b in layout[coord])]
+            assert got.shape == want.shape, (name, rank, k)
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=model_tol(leaf, case.get(
+                                           "decode_ulps", MODEL_ULPS)),
+                                       err_msg=f"{name} rank {rank} leaf {k}")
+
+
+def test_serving_dense_matches_one_process(runs):
+    """Reduced smollm served at (2, 2): each rank's prefill logits equal
+    the port's one-process run's within MODEL_ULPS."""
+    for rank in range(WORLD):
+        mine = load(runs, "serve_smollm", f"rank{rank}")
+        one = mine["one_process"]["logits"]
+        np.testing.assert_allclose(mine["logits"], one, rtol=0,
+                                   atol=model_tol(one))
+
+
+@pytest.mark.parametrize("name", ONE_PROCESS_NAMES)
+def test_serving_matches_one_process(runs, name):
+    """Each rank's prefill and decode logits at (2, 2) are the port's
+    one-process run's on its rows, and its cache shard that run's slice,
+    within MODEL_ULPS: the mesh adds nothing to the port's numbers, so
+    what DRIFT_ULPS allows against JAX is JAX's (2, 2) program's own
+    drift."""
+    j = load(runs, name, "jax")
+    for rank in range(WORLD):
+        mine = load(runs, name, f"rank{rank}")
+        one = mine["one_process"]
+        for what in ("logits", "step_logits"):
+            np.testing.assert_allclose(
+                mine[what], one[what], rtol=0, atol=model_tol(one[what]),
+                err_msg=f"{name} rank {rank} {what}")
+        coord, (r0, r1) = tuple(mine["coord"]), mine["rows"]
+        assert len(mine["cache"]) == len(one["cache"])
+        for k, (got, leaf, (_, layout)) in enumerate(zip(
+                mine["cache"], one["cache"], j["cache"])):
+            sl = [slice(a, b) for a, b in layout[coord]]
+            assert (sl[1].start, sl[1].stop) == (r0, r1), (name, k)
+            sl[1] = slice(None)          # the run holds only these rows
+            want = leaf[tuple(sl)]
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=model_tol(leaf),
+                                       err_msg=f"{name} rank {rank} "
+                                               f"leaf {k}")
+
+
+def test_launch_serve_runs_as_processes():
+    """launch.serve --model-parallel 2 as 4 ranks under torchrun (gloo):
+    rank 0 prints the mesh and the generated tokens' line."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    env.pop("OMP_NUM_THREADS", None)        # torchrun sets 1 a rank
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.launch.serve",
+         "--device", "cpu", "--reduced", "--arch", "olmoe-1b-7b",
+         "--model-parallel", "2", "--batch", "4", "--prompt-len", "32",
+         "--gen", "4"], env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = proc.stdout
+    assert "[mesh] (2, 2) ('data', 'model') over 4 ranks (gloo)" in out
+    assert "[serve] olmoe-reduced: batch=4 prompt=32 gen=4" in out
+    assert out.count("[serve] device cpu x 4") == 1
 
 
 def test_host_mesh_step_equals_one_card():

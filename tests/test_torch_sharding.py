@@ -5,8 +5,9 @@ port's side and ``tests/test_sharding.py``'s ``FakeMesh`` on JAX's, the
 parameter and cache trees as shapes (the port's on the ``meta`` device,
 JAX's through ``jax.eval_shape``).
 
-Contracts: ``param_specs``, ``cache_specs`` and ``batch_specs`` equal
-JAX's leaf for leaf for all ten architectures on both mesh shapes;
+Contracts: ``param_specs``, ``cache_specs`` (at both decode shapes) and
+``batch_specs`` equal JAX's leaf for leaf for all ten architectures on
+both mesh shapes; ``cell_is_runnable`` answers as JAX's;
 ``_sp_mode`` decides as JAX's does; ``to_placements`` maps a spec to
 DTensor placements; ``constrain`` is a no-op on one device.
 """
@@ -18,7 +19,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from repro_torch.configs import ARCH_IDS, SHAPES, get_config  # noqa: E402
+from repro_torch.configs import (ARCH_IDS, SHAPES,  # noqa: E402
+                                 cell_is_runnable, get_config)
 from repro_torch.launch.mesh import (ShapeMesh,  # noqa: E402
                                      make_production_mesh)
 from repro_torch.models import sharding as shd  # noqa: E402
@@ -96,13 +98,15 @@ def test_cache_and_batch_specs_match_jax(arch):
     from repro.models import sharding as jshd
     from repro.models import transformer as jtr
     from repro.models.config import SHAPES as JSHAPES
-    from repro.models.config import cell_is_runnable
+    from repro.models.config import cell_is_runnable as jcell_is_runnable
     jcfg, cfg = jget_config(arch), get_config(arch)
     for multi_pod in (False, True):
         mesh, fake = meshes(multi_pod)
         for name, shape in SHAPES.items():
             jshape = JSHAPES[name]
-            if not cell_is_runnable(jcfg, jshape)[0]:
+            runnable = cell_is_runnable(cfg, shape)
+            assert runnable == jcell_is_runnable(jcfg, jshape), name
+            if not runnable[0]:
                 continue
             got = shd.batch_specs(cfg, shape, mesh)
             want = jshd.batch_specs(jcfg, jshape, fake)
@@ -119,6 +123,27 @@ def test_cache_and_batch_specs_match_jax(arch):
             assert port_specs(shd.cache_specs(
                 cfg, cache, mesh, shape.global_batch)) == jax_specs(
                 jshd.cache_specs(jcfg, jcache, fake, jshape.global_batch))
+
+
+@pytest.mark.parametrize("shape_name", ["decode_32k", "long_500k"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_cache_specs_match_jax(arch, shape_name):
+    """The decode cache's spec tree of every arch at both decode shapes
+    (long_500k too where the dry run skips the cell) on both production
+    meshes equals JAX's, leaf for leaf."""
+    import jax
+    from repro.configs import get_config as jget_config
+    from repro.models import sharding as jshd
+    from repro.models import transformer as jtr
+    jcfg, cfg = jget_config(arch), get_config(arch)
+    shape = SHAPES[shape_name]
+    B, T = shape.global_batch, shape.seq_len
+    jcache = jax.eval_shape(lambda: jtr.init_cache(jcfg, B, T))
+    cache = ttr.init_cache(cfg, B, T, device="meta")
+    for multi_pod in (False, True):
+        mesh, fake = meshes(multi_pod)
+        assert port_specs(shd.cache_specs(cfg, cache, mesh, B)) == \
+            jax_specs(jshd.cache_specs(jcfg, jcache, fake, B)), multi_pod
 
 
 def test_sp_mode_matches_jax():
