@@ -13,11 +13,13 @@ update is a masked tensor op on the state's device.  A tick reads back
 from the device only what sets its loop lengths: the number of valid
 placement candidates, the migration weight, and whether each migration
 step started one (a 0-d tensor is never used as an index, which would
-read it back too: ``types.take``).  On a CUDA device the flow allocation and the 'fw' delay
-refresh go through the hand-written kernels (``repro_torch.kernels``).
-Float segment sums (the requests a tick releases) add each segment's rows
-in row order on every device (``network.segment_sum``), so the card's
-sums equal the CPU's; every entry point turns on
+read it back too: ``types.take``); each read-back is a ``host_sync``
+span of ``core/trace.py``, recorded while a profiler runs.  On a CUDA
+device the flow allocation and the 'fw' delay refresh go through the
+hand-written kernels (``repro_torch.kernels``).  Float segment sums
+(the requests a tick releases) add each segment's rows in row order on
+every device (``network.segment_sum``), so the card's sums equal the
+CPU's; every entry point turns on
 ``torch.use_deterministic_algorithms`` (:func:`use_deterministic`) so
 that no op of the tick takes an order that changes from run to run.
 ``run_sim`` stacks the per-tick metrics; with ``ExecPlan(chunk=...)`` it
@@ -38,7 +40,7 @@ from typing import NamedTuple, Tuple
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core import network, scheduling, stats, workload
+from repro_torch.core import network, scheduling, stats, trace, workload
 from repro_torch.core.datacenter import SimConfig
 from repro_torch.core.scheduling import BIG, INT_BIG, feasible_hosts
 from repro_torch.core.types import (
@@ -224,7 +226,9 @@ def _place_batched(sim: SimState, cfg: SimConfig, params: RunParams,
     # last valid candidate (one read of the count from the device per
     # tick); the JAX package's scan adds an exact 0.0 to each soft sum for
     # the candidates past it (an all-infeasible row has an all-zero softmax)
-    n_valid = int(valid.sum())
+    with trace.host_sync("admit_count"):
+        n_valid = int(valid.sum())
+    trace.count("candidates", n_valid)
     chosen = [torch.full((), -1, dtype=torch.int64, device=dev)] * K
     soft_on = cfg.soft_placement
     if soft_on:
@@ -293,7 +297,8 @@ def _migrate_batched(sim: SimState, cfg: SimConfig, params: RunParams,
     soft_on = cfg.soft_placement
     if soft_on:
         s_mig = s_mig_n = torch.zeros((), dtype=F32, device=status.device)
-    enabled = bool(policy.weights[W_MIG_ENABLE] > 0)
+    with trace.host_sync("mig_enabled"):
+        enabled = bool(policy.weights[W_MIG_ENABLE] > 0)
     for i in range(cfg.migrations_per_tick if enabled else 0):
         view = sim._replace(
             hosts=sim.hosts._replace(used=used, n_containers=ncont),
@@ -316,7 +321,9 @@ def _migrate_batched(sim: SimState, cfg: SimConfig, params: RunParams,
         status = torch.where(_one_hot(C, cc, ok), STATUS_MIGRATING, status)
         cs[i] = torch.where(ok, cc, -1)
         dsts[i] = torch.where(ok, hh, -1)
-        if not bool(ok):
+        with trace.host_sync("mig_step"):
+            stop = not bool(ok)
+        if stop:
             break
     cs = torch.stack(cs)
     dsts = torch.stack(dsts).to(I32)
@@ -354,7 +361,8 @@ def phase_schedule_soft(sim: SimState, cfg: SimConfig, policy: PolicyParams,
     sim = sim._replace(sched=sim.sched._replace(decisions=zero,
                                                 migrations=zero))
     if cfg.batched_placement:
-        sim, place_soft = _place_batched(sim, cfg, params, policy)
+        with trace.span("admit_round"):
+            sim, place_soft = _place_batched(sim, cfg, params, policy)
     else:
         sim, place_soft = _place_sequential(sim, cfg, params, policy), None
     sim, mig_soft = _migrate_batched(sim, cfg, params, policy)
@@ -581,43 +589,46 @@ def make_tick_ext(cfg: SimConfig, policy: PolicyParams, params: RunParams,
 
     def tick_ext(sim: SimState, tt: int):
         # each phase is a labelled range for torch.profiler
-        # (repro_torch.launch.profile); without a profiler it costs a few
+        # (repro_torch.launch.profile), inside the port's own ``tick``
+        # span (core/trace.py); without a profiler they cost a few
         # microseconds a tick
-        with record_function("phase_arrive"):
-            sim, n_arrived = phase_arrive(sim)
-        with record_function("phase_schedule"):
-            sim, soft = phase_schedule_soft(sim, cfg, policy, params)
-        # the state phase_flows reads; no later phase writes a tensor in
-        # place, so these references keep its values
-        mid = sim.containers
-        with record_function("phase_flows"):
-            sim, comm_rates, mig_rates, flow_active, all_rates = \
-                phase_flows(sim, cfg, use_kernel=use_wf_kernel)
-        with record_function("phase_progress"):
-            sim = phase_communicate(sim, cfg, comm_rates)
-            sim = phase_migrate(sim, cfg, mig_rates)
-            sim = phase_execute(sim, cfg)
-            sim = phase_complete(sim)
-            sim = phase_cost(sim)
-        # paper ``update_delay_matrix`` process: every
-        # ``delay_update_interval`` ticks; 0 = once at t=0, then frozen
-        if cfg.delay_update_interval == 0:
-            every = tt == 0
-        else:
-            every = tt % cfg.delay_update_interval == 0
-        if every:
-            with record_function("delay_refresh"):
-                sim = sim._replace(net=refresh(sim.net))
-        with record_function("stats_collect"):
-            m = stats.collect(sim, n_arrived, sim.sched.decisions,
-                              sim.sched.migrations, params, flow_active,
-                              all_rates, soft=soft)
-        sim = sim._replace(t=sim.t + 1.0)
-        return sim, m, TickInfo(
-            comm_rates=comm_rates, mig_rates=mig_rates,
-            flow_active=flow_active, all_rates=all_rates,
-            mid_status=mid.status, mid_host=mid.host, mid_peer=mid.comm_peer,
-            mid_mig_dst=mid.mig_dst, refreshed=every)
+        with trace.span("tick", tt):
+            with record_function("phase_arrive"):
+                sim, n_arrived = phase_arrive(sim)
+            with record_function("phase_schedule"):
+                sim, soft = phase_schedule_soft(sim, cfg, policy, params)
+            # the state phase_flows reads; no later phase writes a tensor in
+            # place, so these references keep its values
+            mid = sim.containers
+            with record_function("phase_flows"):
+                sim, comm_rates, mig_rates, flow_active, all_rates = \
+                    phase_flows(sim, cfg, use_kernel=use_wf_kernel)
+            with record_function("phase_progress"):
+                sim = phase_communicate(sim, cfg, comm_rates)
+                sim = phase_migrate(sim, cfg, mig_rates)
+                sim = phase_execute(sim, cfg)
+                sim = phase_complete(sim)
+                sim = phase_cost(sim)
+            # paper ``update_delay_matrix`` process: every
+            # ``delay_update_interval`` ticks; 0 = once at t=0, then frozen
+            if cfg.delay_update_interval == 0:
+                every = tt == 0
+            else:
+                every = tt % cfg.delay_update_interval == 0
+            if every:
+                with record_function("delay_refresh"):
+                    sim = sim._replace(net=refresh(sim.net))
+            with record_function("stats_collect"):
+                m = stats.collect(sim, n_arrived, sim.sched.decisions,
+                                  sim.sched.migrations, params, flow_active,
+                                  all_rates, soft=soft)
+            sim = sim._replace(t=sim.t + 1.0)
+            return sim, m, TickInfo(
+                comm_rates=comm_rates, mig_rates=mig_rates,
+                flow_active=flow_active, all_rates=all_rates,
+                mid_status=mid.status, mid_host=mid.host,
+                mid_peer=mid.comm_peer, mid_mig_dst=mid.mig_dst,
+                refreshed=every)
 
     return tick_ext
 
@@ -773,7 +784,9 @@ def _cheap_ticks(sim: SimState, t: int, horizon: float, info: TickInfo,
                  | (mig & (mig_left <= 0.0)).any()
                  | (to_trigger & (run_at >= cc.next_comm_at)).any()
                  | (to_finish & (run_at >= cc.duration)).any())
-        if bool(event):
+        with trace.host_sync("telescope_event"):
+            stop = bool(event)
+        if stop:
             break
         conts = cc._replace(
             comm_bytes_left=torch.clamp(
@@ -824,7 +837,8 @@ def _advance(sim: SimState, acc: SummaryAcc, t: int, info: TickInfo,
     speed = sim.hosts.speed[torch.clamp(ct.host, 0, H - 1).long(),
                             ct.ctype.long()]
     horizon = _event_horizon(sim, info, t, seg_end, speed)
-    quiet, horizon = torch.stack([quiet.to(F32), horizon]).tolist()
+    with trace.host_sync("telescope_horizon"):
+        quiet, horizon = torch.stack([quiet.to(F32), horizon]).tolist()
     if not quiet:
         return sim, acc, t + 1
     sim, t2 = _cheap_ticks(sim, t + 1, horizon, info, speed)
@@ -870,8 +884,9 @@ def _telescope_loop(sim: SimState, cfg: SimConfig, policy: PolicyParams,
         acc = stats.acc_update(acc, m)
         n_full += 1
         seg_end = chunk_end if K == 0 else min((t // K + 1) * K, chunk_end)
-        sim, acc, t = _advance(sim, acc, t, info, seg_end, cfg, policy,
-                               params)
+        with trace.span("telescope_advance"):
+            sim, acc, t = _advance(sim, acc, t, info, seg_end, cfg, policy,
+                                   params)
         if t == chunk_end:
             on_chunk(acc)
             acc = stats.acc_init(device)

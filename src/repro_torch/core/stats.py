@@ -23,6 +23,7 @@ from repro_torch.core.types import (
     STATUS_RUNNING, STATUS_WAITING, OnlineSummary, RunParams, SimState,
     SummaryAcc, TickMetrics, resolve_device,
 )
+from repro_torch.core import trace
 
 F32 = torch.float32
 I32 = torch.int32
@@ -223,15 +224,19 @@ def acc_to_numpy(acc: SummaryAcc) -> SummaryAcc:
     """The accumulator's leaves (tensors of any one shape) as numpy arrays,
     with ONE device-to-host copy: the i32 fields ride the f32 stack as
     their bit patterns.  Numpy leaves pass through; the values of soft
-    sums that carry a graph are taken, the graph left alone."""
+    sums that carry a graph are taken, the graph left alone.  Under a
+    profiler the copy's decisions are counted as ``admitted``
+    (``core/trace.py``)."""
     if not isinstance(acc.n_ticks, torch.Tensor):
         return SummaryAcc(*(np.asarray(x) for x in acc))
     f = torch.stack([getattr(acc, k) for k in ACC_FLOAT_FIELDS]).detach()
     i = torch.stack([getattr(acc, k) for k in ACC_INT_FIELDS])
-    host = torch.cat([f, i.view(F32)]).cpu().numpy()
+    with trace.host_sync("summary_copy"):
+        host = torch.cat([f, i.view(F32)]).cpu().numpy()
     nf = len(ACC_FLOAT_FIELDS)
     vals = dict(zip(ACC_FLOAT_FIELDS, host[:nf]))
     vals.update(zip(ACC_INT_FIELDS, host[nf:].view(np.int32)))
+    trace.count("admitted", int(vals["sum_decisions"].sum(dtype=np.int64)))
     return SummaryAcc(**vals)
 
 

@@ -436,7 +436,6 @@ def _worker_loop(spec: GridSpec, out_dir: str, process_id: int, *,
         "process_index": int(process_id),
         "slabs": owned,
         "slab_walls_s": walls,
-        "compile_cache_misses": 0,     # the port compiles nothing
         "n_local_devices": len(devices),
         "backend": "torch-" + devices[0].type,
         "devices": [str(d) for d in devices],

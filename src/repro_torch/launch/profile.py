@@ -7,11 +7,14 @@ Runs ``--warmup`` ticks, then ``--ticks`` ticks under ``torch.profiler``
 (CPU and CUDA activity), and prints: the window's wall time and ticks/s
 (host clock after a synchronize), the host time of each labelled tick phase
 (``engine.make_tick_ext``), the kernel launches per tick, the device's busy
-share (summed device-side event time over wall time, "not measured" when
-the profiler sees no device activity), and the kernels and aten ops with
-the most device time.  The profiler slows the host, so the window's
-ticks/s is lower than an unprofiled run's.  The last
-line is the same as one JSON object.
+share (the union of the device-side events' intervals over wall time,
+overlapping kernels counted once; "not measured" when the profiler sees
+no device activity), the kernels and aten ops with the most device time,
+and the port's own records of the window (``core/trace.py``): device
+read-backs per tick by site, host ms of the admit round per candidate
+(its read-back left out) and the share of candidates admitted.  The
+profiler slows the host, so the window's ticks/s is lower than an
+unprofiled run's.  The last line is the same as one JSON object.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.core import SimConfig, get_policy, network
+from repro_torch.core import SimConfig, get_policy, network, trace
 from repro_torch.core.engine import make_tick
 from repro_torch.launch.sim import build_once
 
@@ -39,20 +42,50 @@ def _device_us(evt, self_only: bool) -> float:
     return float(getattr(evt, name, getattr(evt, legacy, 0.0)) or 0.0)
 
 
+def union_ms(intervals) -> float:
+    """Milliseconds covered by ``(start_us, end_us)`` intervals, those
+    that overlap counted once."""
+    total, reach = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > reach:
+            total += e - max(s, reach)
+            reach = e
+    return total / 1e3
+
+
 def device_summary(events, exclude=()):
     """(kernel launches, {device event name: [ms, count]}, device ms) of a
     profiler's raw events.  Device time comes from the device-side events
     alone (kernels, memcpy, memset): the aten ops' own device times are
-    these same kernels.  ``exclude`` names ranges whose device-side twins
-    are not kernels."""
+    these same kernels.  A name's ms sum its events; the device ms are the
+    union of all their intervals, so kernels that overlap (programmatic
+    dependent launches) count once.  ``exclude`` names ranges whose
+    device-side twins are not kernels."""
     launches = sum(1 for e in events if e.name in LAUNCH_CALLS)
     kernels: dict[str, list] = {}
+    spans = []
     for e in events:
         if e.device_type == DeviceType.CUDA and e.name not in exclude:
             k = kernels.setdefault(e.name, [0.0, 0])
             k[0] += e.time_range.elapsed_us() / 1e3
             k[1] += 1
-    return launches, kernels, sum(ms for ms, _ in kernels.values())
+            spans.append((e.time_range.start, e.time_range.end))
+    return launches, kernels, union_ms(spans)
+
+
+def port_records(snap, ticks: int, admitted: int) -> dict:
+    """The port's records of a window of ``ticks`` ticks
+    (``trace.snapshot()``) and the containers it ``admitted``: device
+    read-backs per tick by site, admit-round host ms per candidate (its
+    ``host_sync`` child left out) and the share of candidates admitted;
+    None where the window tried no candidate."""
+    cands = snap.totals.get("candidates", 0)
+    admit_ns, _ = trace.self_ns(snap, "admit_round")
+    return {"syncs_per_tick": {k: n / ticks for k, n in
+                               trace.syncs_by_site(snap).items()},
+            "admit_ms_per_candidate": (admit_ns / 1e6 / cands if cands
+                                       else None),
+            "admitted_share": admitted / cands if cands else None}
 
 
 def main(argv=None) -> None:
@@ -89,8 +122,10 @@ def main(argv=None) -> None:
                                      else [])
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
+        decided = []
         for tt in range(args.warmup, args.warmup + args.ticks):
-            sim, _ = tick(sim, tt)
+            sim, m = tick(sim, tt)
+            decided.append(m.decisions)
         sync()
         wall = time.perf_counter() - t0
 
@@ -110,6 +145,8 @@ def main(argv=None) -> None:
                   for e in prof.key_averages()
                   if e.key.startswith("aten::")), key=lambda r: -r[1])[:8]
     busy = device_ms / (wall * 1e3) if device_ms > 0 else None
+    port = port_records(trace.snapshot(), args.ticks,
+                        int(torch.stack(decided).sum()))
 
     print(f"{args.hosts} hosts / {C} containers, {args.delay_mode}, "
           f"{args.policy}: ticks {args.warmup}..{args.warmup + args.ticks}"
@@ -126,6 +163,11 @@ def main(argv=None) -> None:
     print("device time by aten op (the kernels it launched):")
     for name, ms, count in ops:
         print(f"  {ms:10.3f} ms  {count:7d}x  {name}")
+    print("device read-backs per tick by site: "
+          + (", ".join(f"{k} {v:.2f}" for k, v in
+                       sorted(port["syncs_per_tick"].items())) or "none"))
+    print(f"admit round: {port['admit_ms_per_candidate']} host ms per "
+          f"candidate, admitted share {port['admitted_share']}")
     print(json.dumps({
         "hosts": args.hosts, "containers": C, "policy": args.policy,
         "delay_mode": args.delay_mode, "ticks": args.ticks,
@@ -138,7 +180,8 @@ def main(argv=None) -> None:
         "top_kernels": [{"name": n, "ms": ms, "count": c}
                         for n, ms, c in top],
         "top_aten_ops": [{"name": n, "ms": ms, "count": c}
-                         for n, ms, c in ops]}))
+                         for n, ms, c in ops],
+        "port": port}))
 
 
 if __name__ == "__main__":

@@ -44,7 +44,7 @@ import torch
 
 from repro_torch.core import (SimConfig, get_policy, list_policies,
                               sweep_summaries, sweep_table)
-from repro_torch.core import stats
+from repro_torch.core import stats, trace
 from repro_torch.core.engine import (run_sim_chunked, simulate,
                                      simulate_chunk, stream_chunks,
                                      use_deterministic)
@@ -307,8 +307,9 @@ def to_host(tensors) -> list:
     """``tensors`` as numpy arrays, packed into one byte buffer on their
     device and copied to the host once."""
     specs = [(t.dtype, tuple(t.shape)) for t in tensors]
-    buf = torch.cat([t.reshape(-1).view(torch.uint8)
-                     for t in tensors]).cpu().numpy()
+    flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in tensors])
+    with trace.host_sync("slab_copy"):
+        buf = flat.cpu().numpy()
     out, off = [], 0
     for dtype, shape in specs:
         dt = np.dtype(_NP_DTYPES[dtype])
@@ -370,19 +371,22 @@ def make_stream_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,
         def run_shard(dev, cells):
             finals, accs = [], []
             for b in cells:
-                f, a = run_cell(*_on(dev, _cell(sims, pols, rps, b, S, N)))
+                with trace.span("sweep_cell", b):
+                    cell = _on(dev, _cell(sims, pols, rps, b, S, N))
+                    f, a = run_cell(*cell)
                 finals.append([x for _, x in tree_leaves_with_path(f)])
                 accs.append(a)
-            leaves = [finals[0][i] if i in statics
-                      else torch.stack([f[i] for f in finals])
-                      for i in range(len(finals[0]))]
-            by_chunk = [x for c in range(len(accs[0]))
-                        for x in stack_tree([a[c] for a in accs])]
-            host = to_host(leaves + by_chunk)
-            slab_sum = stats.online_init((len(finals),))
-            for c0 in range(len(leaves), len(host), n_fields):
-                slab_sum = stats.online_fold(
-                    slab_sum, SummaryAcc(*host[c0:c0 + n_fields]))
+            with trace.span("slab_copy_fold"):
+                leaves = [finals[0][i] if i in statics
+                          else torch.stack([f[i] for f in finals])
+                          for i in range(len(finals[0]))]
+                by_chunk = [x for c in range(len(accs[0]))
+                            for x in stack_tree([a[c] for a in accs])]
+                host = to_host(leaves + by_chunk)
+                slab_sum = stats.online_init((len(finals),))
+                for c0 in range(len(leaves), len(host), n_fields):
+                    slab_sum = stats.online_fold(
+                        slab_sum, SummaryAcc(*host[c0:c0 + n_fields]))
             return host[:len(leaves)], slab_sum
 
         for s0 in slab_starts:
@@ -420,12 +424,10 @@ def make_stream_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,
 
 @dataclasses.dataclass
 class SweepResult:
-    """A sweep's grid and results.  ``compile_cache_misses`` is 0 in the
-    port: nothing is compiled (the JAX sweep counts its jit cache misses
-    here).  ``n_devices`` counts the devices the grid was cut over (a
-    multi-process sweep: workers x devices each); ``worker_meta`` holds
-    each worker's slabs, walls, devices and kernel launches
-    (``launch.dist``)."""
+    """A sweep's grid and results.  ``n_devices`` counts the devices the
+    grid was cut over (a multi-process sweep: workers x devices each);
+    ``worker_meta`` holds each worker's slabs, walls, devices and kernel
+    launches (``launch.dist``)."""
 
     policies: list[str]
     scenarios: list[ScenarioSpec]
@@ -433,7 +435,6 @@ class SweepResult:
     finals: SimState          # [P, S, N, ...]
     metrics: TickMetrics | None   # [P, S, N, T]; None when streamed
     wall_s: float
-    compile_cache_misses: int = 0
     n_devices: int = 1
     summary: OnlineSummary | None = None  # [P, S, N] streamed fold
     worker_meta: list | None = None  # per-worker meta (launch.dist)

@@ -110,7 +110,6 @@ class TuneResult:
     seeds: tuple[int, ...]
     wall_s: float             # first call
     steady_s: float | None    # min of the repeats (``reps > 1``)
-    compile_cache_misses: int  # 0: the port compiles nothing
     n_devices: int
 
     def ranking(self) -> np.ndarray:
@@ -245,7 +244,7 @@ def run_tune(n_samples: int = 16, seeds: Sequence[int] = (0,),
                       rows=rows, scenarios=scenarios, seeds=tuple(seeds),
                       wall_s=round(times[0], 2),
                       steady_s=round(min(times[1:]), 2) if reps > 1 else None,
-                      compile_cache_misses=0, n_devices=fn.n_devices)
+                      n_devices=fn.n_devices)
 
 
 def _space_bounds(space: dict[str, tuple[float, float]]):
@@ -362,7 +361,7 @@ def run_tune_grad(steps: int = 24, batch: int = 8, lr: float = 0.1,
         weights=W, scores=scores, objective=objective, minimize=minimize,
         rows=rows, scenarios=scenarios, seeds=tuple(seeds),
         wall_s=round(time.time() - t_start, 2), steady_s=None,
-        compile_cache_misses=0, n_devices=gfn.n_devices, method="grad",
+        n_devices=gfn.n_devices, method="grad",
         surrogate=final_sur, surrogate_name=surrogate,
         best_oracle=best_score, best_oracle_weights=best_w,
         history=history, surrogate_evals=surrogate_evals,
@@ -432,7 +431,7 @@ def run_tune_cem(steps: int = 6, batch: int = 16, elite_frac: float = 0.25,
         weights=W, scores=scores, objective=objective, minimize=minimize,
         rows=rows, scenarios=scenarios, seeds=tuple(seeds),
         wall_s=round(time.time() - t_start, 2), steady_s=None,
-        compile_cache_misses=0, n_devices=fn.n_devices, method="cem",
+        n_devices=fn.n_devices, method="cem",
         best_oracle=best_score, best_oracle_weights=best_w,
         history=history, oracle_evals=steps * batch)
 

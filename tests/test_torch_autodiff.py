@@ -448,7 +448,7 @@ def test_grad_tune_beats_random_at_equal_oracle_budget():
     taus = [h["tau"] for h in g.history]
     assert taus == sorted(taus, reverse=True) and len(taus) == 6
     assert g.best_oracle_weights is not None
-    assert g.method == "grad" and g.compile_cache_misses == 0
+    assert g.method == "grad"
     np.testing.assert_allclose(g.history[0]["surrogate_mean"],
                                jax_first_surrogate_mean(scen, 4),
                                rtol=V_RTOL)

@@ -79,7 +79,7 @@ def test_run_tune_matches_jax():
     assert list(tres.ranking()) == list(jres.ranking())
     assert tres.table() == jres.table()
     assert tres.best_weights() == jres.best_weights()
-    assert tres.compile_cache_misses == 0 and tres.n_devices == 1
+    assert tres.n_devices == 1
     # integer objectives exactly, from the same rows
     for key in ("total_decisions", "n_completed", "flow_ticks"):
         per = lambda rows: [[r[key] for r in rows if r["policy"] == p]
