@@ -15,8 +15,9 @@ placement candidates, the migration weight, and whether each migration
 step started one (a 0-d tensor is never used as an index, which would
 read it back too: ``types.take``); each read-back is a ``host_sync``
 span of ``core/trace.py``, recorded while a profiler runs.  On a CUDA
-device the flow allocation and the 'fw' delay refresh go through the
-hand-written kernels (``repro_torch.kernels``).  Float segment sums
+device the admit round's candidate loop, the flow allocation and the
+'fw' delay refresh go through the hand-written kernels
+(``repro_torch.kernels``).  Float segment sums
 (the requests a tick releases) add each segment's rows in row order on
 every device (``network.segment_sum``), so the card's sums equal the
 CPU's; every entry point turns on
@@ -44,7 +45,6 @@ from repro_torch.core import network, scheduling, stats, trace, workload
 from repro_torch.core.datacenter import SimConfig
 from repro_torch.core.scheduling import BIG, INT_BIG, feasible_hosts
 from repro_torch.core.types import (
-    F_COMM, F_HOST_UTIL,
     STATUS_COMMUNICATING, STATUS_COMPLETED, STATUS_INACTIVE, STATUS_MIGRATING,
     STATUS_RUNNING, STATUS_UNBORN, STATUS_WAITING, W_CROSS_LEAF, W_MIG_ENABLE,
     W_UTIL,
@@ -185,6 +185,24 @@ def _scatter_to_containers(C: int, idx: torch.Tensor, ok: torch.Tensor):
     return hit.any(dim=1), torch.argmax(hit.to(torch.uint8), dim=1)
 
 
+def _admit_candidates(sim: SimState, cfg: SimConfig, policy: PolicyParams):
+    """The admit round's candidates: ``(cand i64[K], valid bool[K], req_k
+    f32[K, 3], the placement carry)``, the K = ``placements_per_tick``
+    smallest selection keys in key order."""
+    C = sim.containers.status.shape[0]
+    K = min(cfg.placements_per_tick, C)
+    key = scheduling.select_key(sim, policy)                 # i32[C]
+    # keys are distinct ranks except the INT_BIG fill; giving the fill
+    # C + index makes every key distinct, so topk picks the JAX package's
+    # lax.top_k candidates (lowest index first on the fill) in its order
+    arange_c = torch.arange(C, device=sim.t.device)
+    distinct = torch.where(key < INT_BIG, key.long(), C + arange_c)
+    cand = torch.topk(distinct, K, largest=False, sorted=True).indices
+    valid = key[cand] < INT_BIG                              # bool[K]
+    req_k = sim.containers.req[cand]                         # [K, 3]
+    return cand, valid, req_k, scheduling.init_place_carry(sim, cand, policy)
+
+
 def _place_batched(sim: SimState, cfg: SimConfig, params: RunParams,
                    policy: PolicyParams):
     """Batched conflict-resolved placement round.
@@ -194,7 +212,10 @@ def _place_batched(sim: SimState, cfg: SimConfig, params: RunParams,
     a K-step loop carrying the live host ``used``/slot counters and the
     placement carry, so later decisions see earlier ones; then apply the
     container updates in one masked pass.  A candidate with no feasible
-    host is skipped instead of blocking the round.
+    host is skipped instead of blocking the round.  The loop is
+    ``kernels.place_round``: one launch of its CUDA kernel on the card,
+    its plain version on the CPU and with ``cfg.soft_placement``, whose
+    surrogate autograd differentiates through the loop.
 
     Returns ``(sim', soft)``.  With ``cfg.soft_placement`` the loop also
     sums the surrogate ``soft = (soft_comm, soft_util, soft_n)``: the
@@ -205,54 +226,22 @@ def _place_batched(sim: SimState, cfg: SimConfig, params: RunParams,
     """
     C = sim.containers.status.shape[0]
     H = sim.hosts.cap.shape[0]
-    K = min(cfg.placements_per_tick, C)
-    dev = sim.t.device
-
-    key = scheduling.select_key(sim, policy)                 # i32[C]
-    # keys are distinct ranks except the INT_BIG fill; giving the fill
-    # C + index makes every key distinct, so topk picks the JAX package's
-    # lax.top_k candidates (lowest index first on the fill) in its order
-    arange_c = torch.arange(C, device=dev)
-    distinct = torch.where(key < INT_BIG, key.long(), C + arange_c)
-    cand = torch.topk(distinct, K, largest=False, sorted=True).indices
-    valid = key[cand] < INT_BIG                              # bool[K]
-    req_k = sim.containers.req[cand]                         # [K, 3]
-    pcarry = scheduling.init_place_carry(sim, cand, policy)
-
-    used, ncont = sim.hosts.used, sim.hosts.n_containers
-    arange_h = torch.arange(H, device=dev)
+    cand, valid, req_k, pcarry = _admit_candidates(sim, cfg, policy)
     # valid candidates come first in key order, and an invalid one admits
     # nothing and leaves the carry as it was, so the loop stops at the
     # last valid candidate (one read of the count from the device per
-    # tick); the JAX package's scan adds an exact 0.0 to each soft sum for
-    # the candidates past it (an all-infeasible row has an all-zero softmax)
+    # tick)
     with trace.host_sync("admit_count"):
         n_valid = int(valid.sum())
     trace.count("candidates", n_valid)
-    chosen = [torch.full((), -1, dtype=torch.int64, device=dev)] * K
-    soft_on = cfg.soft_placement
-    if soft_on:
-        s_comm = s_util = s_n = torch.zeros((), dtype=F32, device=dev)
-    for k in range(n_valid):
-        feas = feasible_hosts(sim.hosts.cap, used, ncont, req_k[k],
-                              cfg) & valid[k]
-        row, cols = scheduling.host_row_cols(sim, cfg, params, policy,
-                                             pcarry, k, cand, used)
-        h = _pick_host(row, feas)
-        if soft_on:
-            q = scheduling.soft_assign(row, feas, params.tau)
-            s_comm = s_comm + (q * cols[F_COMM]).sum()
-            s_util = s_util + (q * cols[F_HOST_UTIL]).sum()
-            s_n = s_n + feas.any().to(F32)
-        ok = h >= 0
-        hh = torch.clamp(h, 0, H - 1)
-        hot = (arange_h == hh) & ok
-        used = torch.where(hot[:, None], used + req_k[k][None, :], used)
-        ncont = torch.where(hot, ncont + 1, ncont)
-        pcarry = scheduling.update_place_carry(sim, policy, pcarry, k, cand,
-                                               hh, ok)
-        chosen[k] = h
-    chosen = torch.stack(chosen)
+    from repro_torch.kernels.place_round import place_round, place_round_ref
+    if cfg.soft_placement:
+        rnd = place_round_ref(sim, cfg, params, policy, cand, valid, req_k,
+                              pcarry, n_valid, soft=True)
+    else:
+        rnd = place_round(sim, cfg, params, policy, cand, valid, req_k,
+                          pcarry, n_valid)
+    chosen = rnd.chosen
 
     ok = chosen >= 0
     hh = torch.clamp(chosen, 0, H - 1).to(I32)
@@ -264,11 +253,11 @@ def _place_batched(sim: SimState, cfg: SimConfig, params: RunParams,
         start_t=torch.where(sel & (ct.start_t < 0), sim.t, ct.start_t),
         retry=torch.where(sel, 0, ct.retry),
     )
-    hosts = sim.hosts._replace(used=used, n_containers=ncont)
-    sched = scheduling.commit_place_carry(sim.sched, pcarry)._replace(
+    hosts = sim.hosts._replace(used=rnd.used, n_containers=rnd.ncont)
+    sched = scheduling.commit_place_carry(sim.sched, rnd.carry)._replace(
         decisions=sim.sched.decisions + ok.sum().to(I32))
     return (sim._replace(hosts=hosts, containers=conts, sched=sched),
-            (s_comm, s_util, s_n) if soft_on else None)
+            rnd.soft)
 
 
 def _migrate_batched(sim: SimState, cfg: SimConfig, params: RunParams,

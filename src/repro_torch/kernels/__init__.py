@@ -18,7 +18,8 @@ KERNEL_FLAGS = ("auto", "on", "off")
 
 # wrapper name -> launches since the last reset_launch_counts()
 LAUNCHES: dict[str, int] = {"seg_waterfill": 0, "fw_minplus": 0,
-                             "flash_attention": 0, "ssd_scan": 0}
+                             "flash_attention": 0, "ssd_scan": 0,
+                             "place_round": 0}
 
 
 # the cost counter tracing a shape-only program, while one is open
@@ -65,11 +66,9 @@ def resolve_kernel(flag: str, device) -> bool:
     return on_cuda
 
 
-def check_cuda_tensor(name: str, t: torch.Tensor, dtype, shape) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
-    ``shape`` — what a kernel's C interface takes."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+def check_tensor(name: str, t: torch.Tensor, dtype, shape) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` and
+    ``shape``."""
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -77,6 +76,14 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype, shape) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_cuda_tensor(name: str, t: torch.Tensor, dtype, shape) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
+    ``shape`` — what a kernel's C interface takes."""
+    check_tensor(name, t, dtype, shape)
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
 
 
 def check_no_grad(kernel: str, **inputs: torch.Tensor) -> None:

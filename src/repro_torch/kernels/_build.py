@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("seg_waterfill", "fw_minplus", "flash_attention", "ssd_scan")
+SOURCES = ("seg_waterfill", "fw_minplus", "flash_attention", "ssd_scan",
+           "place_round")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: dict[str, str] = {}    # kernel name -> nvcc's output
