@@ -18,7 +18,6 @@ import argparse
 import json
 import sys
 from pathlib import Path
-from types import SimpleNamespace
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
@@ -32,10 +31,7 @@ def control_readings(name: str, seed: int, device, root=harness.ROOT,
     grids of a grid cell."""
     import torch
     spec = harness.load_cell(name, root)
-    ctx = SimpleNamespace(config=spec.config, traffic=spec.traffic,
-                          sim=spec.sim, seed=int(seed),
-                          device=torch.device(device))
-    drv = spec.driver(ctx)
+    drv = spec.driver(harness.context(spec, seed, torch.device(device)))
     drv.build_inputs()
     if spec.traffic["driver"] == "grid":
         drv.grids = [(g, None, None) for g in range(grids)]

@@ -69,7 +69,7 @@ class Driver:
         are both built from."""
         ctx = self.ctx
         fleet = ctx.config["fleet"]
-        self.hosts = inputs.host_tables(fleet["hosts"], fleet["leaves"],
+        self.hosts = inputs.host_tables(ctx.topology.port.host_switch(fleet),
                                         fleet["host_categories"])
         self.cols = inputs.mix_workload(ctx.sim, ctx.traffic, ctx.seed)
 
@@ -77,8 +77,10 @@ class Driver:
         ctx, p = self.ctx, program.port()
         self.build_inputs()
         self.cfg = program.sim_config(ctx.sim)
-        self.sim0, self.H, self.N = program.initial_state(
-            self.hosts, self.cols, ctx.config["fleet"], ctx.device)
+        net, self.H, self.N = ctx.topology.port.build(ctx.config["fleet"],
+                                                      ctx.device)
+        self.sim0 = program.initial_state(self.hosts, self.cols, net,
+                                          ctx.device)
         self.policy = p.scheduling.get_policy(ctx.traffic["policy"],
                                               device=ctx.device)
         self.params = self.cfg.run_params(ctx.device)
@@ -128,10 +130,10 @@ class Driver:
         refresh; ``record``: a list that takes the reference's own."""
         ctx = self.ctx
         dev = compare.reference_device(ctx)
+        fabric = ctx.topology.reference.build_net(ctx.config["fleet"], dev)
         s, series, gap = ref_sim.run(
-            self.hosts, self.cols, ctx.config["fleet"], ctx.sim,
-            ctx.traffic["policy"], self.horizon, dev, lowp=lowp,
-            follow=follow, record=record)
+            self.hosts, self.cols, fabric, ctx.sim, ctx.traffic["policy"],
+            self.horizon, dev, lowp=lowp, follow=follow, record=record)
         return (compare.reference_state(s), compare.reference_summary(series),
                 gap)
 
@@ -146,4 +148,5 @@ class Driver:
         return {"ticks": self.ticks}
 
     def shapes(self) -> dict:
-        return program.kernel_shapes(self.ctx.config, self.ctx.sim)
+        return self.ctx.topology.port.kernel_shapes(self.ctx.config["fleet"],
+                                                    self.ctx.sim)

@@ -43,18 +43,17 @@ class Driver:
     def build_inputs(self):
         """The fleet's numpy tables; each grid's workloads are drawn from
         its seeds as it comes (:meth:`seeds`)."""
-        fleet = self.ctx.config["fleet"]
-        self.hosts = inputs.host_tables(fleet["hosts"], fleet["leaves"],
+        ctx = self.ctx
+        fleet = ctx.config["fleet"]
+        self.hosts = inputs.host_tables(ctx.topology.port.host_switch(fleet),
                                         fleet["host_categories"])
 
     def setup(self):
         ctx, p = self.ctx, program.port()
-        fleet = ctx.config["fleet"]
         self.build_inputs()
         self.cfg = program.sim_config(ctx.sim)
-        spec = program.topology(fleet)
-        self.net = p.network.build_network(spec, device=ctx.device)
-        self.H, self.N = spec.n_hosts, spec.n_nodes
+        self.net, self.H, self.N = ctx.topology.port.build(
+            ctx.config["fleet"], ctx.device)
         plan = ctx.traffic["plan"]
         self.fn = p.sweep.make_stream_fn(
             self.cfg, self.H, self.N, self.horizon, chunk=plan["chunk"],
@@ -86,8 +85,8 @@ class Driver:
         for sc in self.scenarios:
             spec = p.scenario.ScenarioSpec(**sc)
             per_seed = [program.initial_state(
-                self.hosts, self._workload(sc, s), ctx.config["fleet"],
-                ctx.device, net=self.net)[0] for s in self.seeds(g)]
+                self.hosts, self._workload(sc, s), self.net, ctx.device)
+                for s in self.seeds(g)]
             sims.append(stack(per_seed))
             rps.append(spec.run_params(self.cfg, ctx.device))
         self._inputs[g] = (stack(sims), stack(rps))
@@ -141,9 +140,10 @@ class Driver:
         sc.pop("name")
         sc.pop("arrival", None)
         dev = compare.reference_device(ctx)
-        st, series, _ = ref_sim.run(self.hosts, cols, ctx.config["fleet"],
-                                 ctx.sim, self.policies[p], self.horizon,
-                                 dev, lowp=lowp, scenario=sc)
+        fabric = ctx.topology.reference.build_net(ctx.config["fleet"], dev)
+        st, series, _ = ref_sim.run(self.hosts, cols, fabric, ctx.sim,
+                                    self.policies[p], self.horizon, dev,
+                                    lowp=lowp, scenario=sc)
         return compare.reference_state(st), compare.reference_summary(series)
 
     def cell_result(self, g, p, s, n):
@@ -167,4 +167,5 @@ class Driver:
         return {"ticks": self.ticks, "cells": self.cells}
 
     def shapes(self) -> dict:
-        return program.kernel_shapes(self.ctx.config, self.ctx.sim)
+        return self.ctx.topology.port.kernel_shapes(self.ctx.config["fleet"],
+                                                    self.ctx.sim)

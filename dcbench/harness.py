@@ -4,22 +4,27 @@
         --trace <0|1>
 
 Everything a cell is made of is found by name: its configuration in the
-file ``BENCHMARK.json`` gives it, its traffic mix at
-``dcbench/traffic/<traffic>.json``, the window driver that mix names at
-``dcbench/drivers/<driver>.py`` and each metric's reader, end-to-end or
-per-layer, at ``dcbench/metrics/<metric>.py``.  A run builds the
-port's simulator kernels where the checkout has not yet, builds the
-cell's inputs from the seed, warms the cell's own path, measures a
-window of at least ``--seconds`` that closes at the first boundary of
-the driver's unit after them, reads the device's peak memory, checks
-what the window produced against the plain reference, and prints one
-JSON line.  With ``--trace 1`` the window's first unit is traced.
+file ``BENCHMARK.json`` gives it, the fabric its fleet names
+(``topology``, ``spine_leaf`` where it names none) at
+``dcbench/topologies/<topology>.py`` for the program and
+``dcbench/reference/topologies/<topology>.py`` for the reference, its
+traffic mix at ``dcbench/traffic/<traffic>.json``, the window driver
+that mix names at ``dcbench/drivers/<driver>.py`` and each metric's
+reader, end-to-end or per-layer, at ``dcbench/metrics/<metric>.py``.
+A run builds the port's simulator kernels where the checkout has not
+yet, builds the cell's inputs from the seed, warms the cell's own path,
+measures a window of at least ``--seconds`` that closes at the first
+boundary of the driver's unit after them, reads the device's peak
+memory, checks what the window produced against the plain reference,
+and prints one JSON line.  With ``--trace 1`` the window's first unit
+is traced.
 """
 from __future__ import annotations
 
 import gc
 import importlib.util
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -30,6 +35,7 @@ from dcbench import compare, program
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 
 
 class RunError(Exception):
@@ -55,9 +61,26 @@ def _module(path: Path, name: str):
     return mod
 
 
+def load_topology(fleet: dict, root: Path = ROOT) -> SimpleNamespace:
+    """The fabric ``fleet`` names: its ``name``, the program's side
+    (``port``: ``host_switch``, ``build``, ``kernel_shapes``) and the
+    reference's (``reference``: ``build_net``)."""
+    name = fleet.get("topology", "spine_leaf")
+    if not NAME.match(name):
+        raise RunError(f"no topology {name!r}: not a name")
+    bench = root / "dcbench"
+    return SimpleNamespace(
+        name=name,
+        port=_module(bench / "topologies" / f"{name}.py",
+                     f"dcbench_topology_{name}"),
+        reference=_module(bench / "reference" / "topologies" / f"{name}.py",
+                          f"dcbench_reference_topology_{name}"))
+
+
 def load_cell(name: str, root: Path = ROOT) -> SimpleNamespace:
-    """The cell ``name``: its manifest entry, configuration, traffic,
-    driver class and per-layer metric readers, all found by name."""
+    """The cell ``name``: its manifest entry, configuration, fabric,
+    traffic, driver class and per-layer metric readers, all found by
+    name."""
     man = manifest(root)
     cells = {w["name"]: w for w in man["workloads"]}
     if name not in cells:
@@ -80,10 +103,19 @@ def load_cell(name: str, root: Path = ROOT) -> SimpleNamespace:
                for m in e2e + per_layer}
     sim = dict(config["sim"])
     sim.update(traffic.get("sim", {}))
-    return SimpleNamespace(cell=cell, config=config, traffic=traffic,
-                           driver=driver, end_to_end=e2e,
+    return SimpleNamespace(cell=cell, config=config,
+                           topology=load_topology(config["fleet"], root),
+                           traffic=traffic, driver=driver, end_to_end=e2e,
                            per_layer=per_layer, readers=readers, sim=sim,
                            chips=cell["chips"])
+
+
+def context(spec: SimpleNamespace, seed: int, device) -> SimpleNamespace:
+    """What a cell's driver is built from: its configuration, fabric,
+    traffic and merged ``sim`` settings, the run's seed and device."""
+    return SimpleNamespace(config=spec.config, topology=spec.topology,
+                           traffic=spec.traffic, sim=spec.sim,
+                           seed=int(seed), device=device)
 
 
 def measure(unit, seconds: float, clock=time.perf_counter,
@@ -134,8 +166,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     on_cuda = device.type == "cuda"
     sync = (lambda: torch.cuda.synchronize(device)) if on_cuda \
         else (lambda: None)
-    ctx = SimpleNamespace(config=spec.config, traffic=spec.traffic,
-                          sim=spec.sim, seed=int(seed), device=device)
+    ctx = context(spec, seed, device)
     compiled = program.build_kernels(spec.sim) if on_cuda else []
     t_built = clock()
     driver = spec.driver(ctx)

@@ -1,12 +1,12 @@
 """A cell's inputs, drawn in numpy from the seed.
 
-The host fleet (paper Table 5's categories round-robin over the fleet),
-the spine-leaf topology's sizes and the container workload (paper Table
-6, trace-shaped or bursty arrivals).  The draws follow the port's own
-generators (``repro_torch.core.workload``, ``datacenter``) draw for draw,
-so a seed gives the arrays those give; ``test_dcbench_reference.py``
-holds them equal.  Both the program and the plain reference are built
-from these arrays and nothing else.
+The host fleet (paper Table 5's categories over the fleet, each host on
+the first-hop switch its fabric gives) and the container workload
+(paper Table 6, trace-shaped or bursty arrivals).  The draws follow the
+port's own generators (``repro_torch.core.workload``, ``datacenter``)
+draw for draw, so a seed gives the arrays those give;
+``test_dcbench_reference.py`` holds them equal.  Both the program and
+the plain reference are built from these arrays and nothing else.
 
 A mix draws its containers once, from its own ``base_seed``, and a run's
 seed orders them (:func:`ordered`): every seed gives the same set of
@@ -29,11 +29,12 @@ PAPER_HOST_CATEGORIES = (
 HOST_CATEGORIES = {"paper-table5": PAPER_HOST_CATEGORIES}
 
 
-def host_tables(n_hosts: int, n_leaf: int,
-                categories: str = "paper-table5") -> dict:
-    """The fleet: each category ``n_hosts // len(categories)`` times, the
-    remainder to the first, in category order; host ``h`` hangs off leaf
-    ``h % n_leaf``."""
+def host_tables(leaf: np.ndarray, categories: str = "paper-table5") -> dict:
+    """The fleet of ``len(leaf)`` hosts: each category ``n_hosts //
+    len(categories)`` times, the remainder to the first, in category
+    order; host ``h`` hangs off switch ``leaf[h]`` (a topology's
+    ``host_switch``)."""
+    n_hosts = len(leaf)
     cats = HOST_CATEGORIES[categories]
     per = max(1, n_hosts // len(cats))
     counts = [per] * len(cats)
@@ -44,11 +45,10 @@ def host_tables(n_hosts: int, n_leaf: int,
             cap.append([cores * 100.0, float(mem), gpus * 100.0])
             speed.append([cs, ms, gs])
             price.append(p)
-    H = len(cap)
     return dict(cap=np.asarray(cap, np.float32),
                 speed=np.asarray(speed, np.float32),
                 price=np.asarray(price, np.float32),
-                leaf=(np.arange(H) % n_leaf).astype(np.int32))
+                leaf=np.asarray(leaf, np.int32))
 
 
 def _assign_jobs_tasks(rng, n_jobs, n_tasks, n_containers):

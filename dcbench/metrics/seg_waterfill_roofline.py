@@ -1,7 +1,8 @@
 """seg_waterfill_roofline: the kernel's bound over its device time per call,
 %.  The bound: the call's input bytes read once and output bytes
-written once at F flows and E links (dcbench/peaks.py), at the
-published HBM bandwidth; the device time: the waterfill kernels (the
+written once at F flows of ``waterfill_hops`` link ids (4 where the
+shapes give none) and E links (dcbench/peaks.py), at the published HBM
+bandwidth; the device time: the waterfill kernels (the
 one-launch ``waterfill_smem`` or the four-launch variant's
 ``csr_*``/``waterfill``) of the traced unit, the union of their
 intervals, over the wrapper's calls."""
@@ -17,5 +18,6 @@ def read(rd):
     dev_s = tr.device_union_s(lambda k: "waterfill" in k or "csr_" in k)
     if dev_s <= 0:
         return None
-    return 100.0 * peaks.bound_s(peaks.seg_waterfill_work(F, E)) \
+    hops = rd.shapes.get("waterfill_hops", 4)
+    return 100.0 * peaks.bound_s(peaks.seg_waterfill_work(F, E, hops)) \
         / (dev_s / calls)

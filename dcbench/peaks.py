@@ -23,14 +23,14 @@ def fw_minplus_work(n: int) -> dict:
     return {"flops": 2.0 * n ** 3, "bytes": 2.0 * 4 * n * n}
 
 
-def seg_waterfill_work(F: int, E: int) -> dict:
+def seg_waterfill_work(F: int, E: int, hops: int = 4) -> dict:
     """Max-min-fair allocation of ``F`` flows over ``E`` links: each input
-    byte read once (the flows' four int32 link ids, their bool active
+    byte read once (the flows' ``hops`` int32 link ids, their bool active
     flags and float32 Mathis caps, the links' float32 capacities) and each
     output byte written once (float32 rates and link loads).  Its
     arithmetic is a few operations a byte, so bytes bound it."""
     return {"flops": 0.0,
-            "bytes": float(F * (4 * 4 + 1 + 4) + E * 4 + F * 4 + E * 4)}
+            "bytes": float(F * (hops * 4 + 1 + 4) + E * 4 + F * 4 + E * 4)}
 
 
 def bound_s(work: dict) -> float:

@@ -3,8 +3,9 @@
 The port (``repro_torch``, under ``src/`` of the checkout) is imported
 here and nowhere else in the harness: the drivers reach it through
 :func:`port`.  It is handed the host tables and the container columns of
-``dcbench.inputs`` through its own constructors, and builds its network,
-its policy and its run parameters itself.
+``dcbench.inputs`` through its own constructors, and builds its network
+(through the cell's topology, ``dcbench/topologies/``), its policy and
+its run parameters itself.
 """
 from __future__ import annotations
 
@@ -44,28 +45,16 @@ def sim_config(sim: dict):
         k: tuple(v) if isinstance(v, list) else v for k, v in sim.items()})
 
 
-def topology(topo: dict):
+def initial_state(hosts: dict, cols: dict, net, device):
+    """The port's initial ``SimState`` on ``device`` over ``net``, a
+    fabric a topology built (one fabric may serve many states)."""
     p = port()
-    return p.network.SpineLeafSpec(
-        n_spine=topo["spines"], n_leaf=topo["leaves"],
-        n_hosts=topo["hosts"], host_leaf_bw=topo["link_bw_mbps"],
-        leaf_spine_bw=topo["link_bw_mbps"],
-        link_delay_ms=topo["link_delay_ms"], loss=topo["link_loss"])
-
-
-def initial_state(hosts: dict, cols: dict, topo: dict, device, net=None):
-    """(the port's initial ``SimState``, n_hosts, n_nodes) on ``device``;
-    ``net`` shares a built fabric between states."""
-    p = port()
-    spec = topology(topo)
-    if net is None:
-        net = p.network.build_network(spec, device=device)
     h = p.types.make_hosts(hosts["cap"], hosts["speed"], hosts["price"],
                            hosts["leaf"], device=device)
     ct = p.types.empty_containers(cols["job"].shape[0], device=device)
     ct = ct._replace(**{k: torch.as_tensor(np.asarray(v), device=device)
                         for k, v in cols.items()})
-    return p.engine.init_sim(h, ct, net), spec.n_hosts, spec.n_nodes
+    return p.engine.init_sim(h, ct, net)
 
 
 def state_to_host(sim) -> dict:
@@ -99,15 +88,3 @@ def build_kernels(sim: dict) -> list:
     todo = [n for n in names if not _build.library_path(n).exists()]
     _build.build(todo)
     return todo
-
-
-def kernel_shapes(config: dict, sim: dict) -> dict:
-    """The shapes a tick calls the simulator's kernels at: ``fw_minplus``
-    over the fabric's n nodes (in ``'fw'`` delay mode) and
-    ``seg_waterfill`` over F = 2C flows (a comm flow and a migration flow
-    a container) and E links."""
-    f = config["fleet"]
-    n_nodes = f["hosts"] + f["leaves"] + f["spines"]
-    return {"fw_n": n_nodes if sim["delay_mode"] == "fw" else None,
-            "waterfill_F": 2 * sim["n_containers"],
-            "waterfill_E": f["hosts"] + f["leaves"] * f["spines"]}

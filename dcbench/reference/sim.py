@@ -5,10 +5,12 @@ It is a frozen, trimmed copy of the port's per-tick path on its plain
 versions (``repro_torch.core``: engine, scheduling, network, stats), kept
 here so that a change to the port cannot move the yardstick.  It imports
 nothing of the port and is built from the numpy inputs of
-``dcbench.inputs`` alone: the topology, the policy weights and every
-derived table are worked out again here.  Every float sum keeps the
-port's order; the delay refresh's shortest paths relax one pivot at a
-time (:func:`_apsp`).  On the CPU it is the port's CPU run bit for bit.
+``dcbench.inputs`` alone: the fabric (its builder under
+``reference/topologies/``, paths of any length), the policy weights and
+every derived table are worked out again here.  Every float sum keeps
+the port's order; the delay refresh's shortest paths relax one pivot at
+a time (:func:`_apsp`).  On the CPU it is the port's CPU run bit for
+bit.
 
 The simulation is chaotic: an ulp of delay, which another association
 of the shortest paths' sums moves, turns a tie between hosts and every
@@ -81,65 +83,45 @@ class Sim(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# Topology and state
+# Network and state
 # ---------------------------------------------------------------------------
-def _sum4(g):
-    return ((g[..., 0] + g[..., 1]) + g[..., 2]) + g[..., 3]
+def _sum_links(g):
+    """A path's values added left to right over its trailing link axis:
+    ((g0 + g1) + g2) + ..., the port's order at any path length."""
+    total = g[..., 0]
+    for i in range(1, g.shape[-1]):
+        total = total + g[..., i]
+    return total
 
 
 def _padded(x):
     return torch.cat([x, x.new_zeros((1,))])
 
 
-def build_net(topo: dict, device, bw=None, loss=None) -> dict:
-    """The spine-leaf fabric of ``topo`` (hosts, leaves, spines, link
-    bandwidth, loss and delay): link tables, deterministic ECMP paths
-    (pair (i, j) over spine (i + j) % S), then ``bw``/``loss`` applied
-    as a run's overrides are."""
-    H, L, S = topo["hosts"], topo["leaves"], topo["spines"]
-    E = H + L * S
-    host_leaf = np.arange(H) % L
-    link_u = np.zeros(E, np.int32)
-    link_v = np.zeros(E, np.int32)
-    link_bw = np.zeros(E, np.float32)
-    link_u[:H], link_v[:H] = np.arange(H), H + host_leaf
-    link_bw[:H] = topo["link_bw_mbps"]
-    lf, s = np.meshgrid(np.arange(L), np.arange(S), indexing="ij")
-    link_u[H:], link_v[H:] = (H + lf).reshape(-1), (H + L + s).reshape(-1)
-    link_bw[H:] = topo["link_bw_mbps"]
-    I, J = np.meshgrid(np.arange(H), np.arange(H), indexing="ij")
-    li, lj = host_leaf[I], host_leaf[J]
-    same, cross = (li == lj) & (I != J), li != lj
-    spine = (I + J) % S
-    pl = np.full((H, H, 4), -1, np.int32)
-    pl[same, 0], pl[same, 1] = I[same], J[same]
-    pl[cross, 0] = I[cross]
-    pl[cross, 1] = (H + li * S + spine)[cross]
-    pl[cross, 2] = (H + lj * S + spine)[cross]
-    pl[cross, 3] = J[cross]
-    nl = np.where(same, 2, np.where(cross, 4, 0)).astype(np.int32)
-    t = lambda x: torch.as_tensor(x, device=device)
-    delay = t(np.full(E, topo["link_delay_ms"], np.float32))
-    lossv = t(np.full(E, topo["link_loss"], np.float32))
-    pl_t = t(pl)
-    bw_t = t(link_bw)
+def network(fabric: dict, bw=None, loss=None) -> dict:
+    """A run's network from a fabric's tables (a topology's
+    ``build_net``): ``bw``/``loss`` applied as a run's overrides are,
+    then the tables derived from them."""
+    bw_t, lossv = fabric["link_bw"], fabric["link_loss"]
     if bw is not None:
         bw_t = torch.full_like(bw_t, bw)
     if loss is not None:
         lossv = torch.full_like(lossv, loss)
-    net = dict(link_bw=bw_t, link_delay=delay, link_loss=lossv,
-               link_u=t(link_u), link_v=t(link_v), path_links=pl_t,
-               path_nlinks=t(nl), link_bw_kbps=bw_t * MBPS_TO_KBPS,
+    pl_t = fabric["path_links"]
+    net = dict(fabric, link_bw=bw_t, link_loss=lossv,
+               link_bw_kbps=bw_t * MBPS_TO_KBPS,
                path_loss=_path_loss(lossv, pl_t),
-               link_util=torch.zeros((E,), dtype=F32, device=device),
-               delay_matrix=_sum4(_padded(delay)[pl_t.long()]))
+               link_util=torch.zeros(bw_t.shape, dtype=F32,
+                                     device=bw_t.device),
+               delay_matrix=_sum_links(_padded(fabric["link_delay"])
+                                       [pl_t.long()]))
     net["comm_cost"] = comm_cost(net)
     return net
 
 
 def _path_loss(loss, pl):
     keep = _padded(torch.log1p(-torch.clamp(loss, 0.0, 0.99)))
-    return 1.0 - torch.exp(_sum4(keep[pl.long()]))
+    return 1.0 - torch.exp(_sum_links(keep[pl.long()]))
 
 
 def comm_cost(net, util_weight=1.0, cross_leaf_ms=0.05):
@@ -411,7 +393,7 @@ def _migrate(s: Sim, sim: dict, rp: dict, w) -> Sim:
 # Network
 # ---------------------------------------------------------------------------
 def _waterfill(links, active, bw_kbps, tcp, n_rounds):
-    F = links.shape[0]
+    F, P = links.shape
     E = bw_kbps.shape[0]
     valid = (links >= 0) & active[:, None]
     seg = torch.where(valid, links, E).reshape(-1).long()
@@ -425,7 +407,7 @@ def _waterfill(links, active, bw_kbps, tcp, n_rounds):
         share = torch.where(cnt > 0, cap_rem / torch.clamp(cnt, min=1.0),
                             INF)
         padded = torch.cat([share, share.new_full((1,), INF)])
-        return torch.where(valid, padded[seg.reshape(F, 4)],
+        return torch.where(valid, padded[seg.reshape(F, P)],
                            INF).amin(dim=1)
 
     alloc = torch.where(active, LOCAL_RATE_KBPS, 0.0)
@@ -499,7 +481,7 @@ def _refresh(s: Sim, sim: dict, rp: dict, w, lowp: bool,
     d_link = net["link_delay"] + torch.clamp(rp["queue_coef"] * u / (1.0 - u),
                                              max=20.0)
     if sim["delay_mode"] == "path":
-        D = _sum4(_padded(d_link)[net["path_links"].long()])
+        D = _sum_links(_padded(d_link)[net["path_links"].long()])
     else:
         n = H + int(s.net["n_switches"])
         a, b = net["link_u"].long(), net["link_v"].long()
@@ -714,18 +696,18 @@ def tick(s: Sim, tt: int, sim: dict, rp: dict, w, lowp: bool = False,
     return s._replace(t=s.t + 1.0), m
 
 
-def run(hosts: dict, cols: dict, topo: dict, sim: dict, policy: str,
+def run(hosts: dict, cols: dict, fabric: dict, sim: dict, policy: str,
         horizon: int, device, lowp: bool = False, scenario: dict | None = None,
         follow=None, record: list | None = None):
-    """One whole run: returns (final ``Sim``, per-tick metrics as a dict
-    of host numpy series, the widest delay gap to ``follow``).
+    """One whole run over ``fabric`` (a topology's ``build_net`` on
+    ``device``): returns (final ``Sim``, per-tick metrics as a dict of
+    host numpy series, the widest delay gap to ``follow``).
     ``scenario`` holds a run's overrides (bw, loss, queue_coef,
     overload_threshold, idle_threshold); ``follow`` the program's delay
     matrices of each refresh, to go on from (module docstring);
     ``record`` takes the matrices the run went on from."""
     sc = scenario or {}
-    net = build_net(topo, device, bw=sc.get("bw"), loss=sc.get("loss"))
-    net["n_switches"] = topo["leaves"] + topo["spines"]
+    net = network(fabric, bw=sc.get("bw"), loss=sc.get("loss"))
     s = init_state(hosts, cols, net, device)
     rp = {k: torch.tensor(sc.get(k, sim[k]), dtype=F32, device=device)
           for k in ("queue_coef", "overload_threshold", "idle_threshold")}

@@ -113,7 +113,15 @@ def test_every_piece_is_found_by_its_file_name():
         assert c["name"] in used
         f = ROOT / c["file"]
         assert f.is_file() and c["file"].startswith("dcbench/")
-        assert json.loads(f.read_text())["name"] == c["name"]
+        config = json.loads(f.read_text())
+        assert config["name"] == c["name"]
+        # the fabric its fleet names, on the program's side and the
+        # reference's
+        topology = config["fleet"].get("topology", "spine_leaf")
+        assert NAME.match(topology)
+        assert (BENCH / "topologies" / f"{topology}.py").is_file()
+        assert (BENCH / "reference" / "topologies"
+                / f"{topology}.py").is_file()
         files.add(c["file"])
     assert len(files) == len(MAN["configs"])
     for w in MAN["workloads"]:

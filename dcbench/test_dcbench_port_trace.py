@@ -16,6 +16,12 @@ from dcbench.trace import Trace, _union
 ROOT = Path(harness.ROOT)
 MAN = json.loads((ROOT / "BENCHMARK.json").read_text())
 EPISODE = ["sim100-burst", "sim100-telescoped"]
+# the per-layer entries that stood before these readers' (PR 26's)
+FIRST = ("launches_per_tick", "full_tick_share", "schedule_ms_per_tick",
+         "flows_ms_per_tick", "delay_refresh_ms", "fw_minplus_roofline",
+         "seg_waterfill_roofline", "device_idle_share", "peak_mem_gib",
+         "sweep_gap_ms_per_cell", "launches_per_tick.sweep",
+         "device_idle_share.sweep")
 NEW = {"syncs_per_tick": EPISODE, "sync_ms_per_tick": EPISODE,
        "admit_ms_per_candidate": EPISODE, "admitted_share": EPISODE,
        "admit_idle_share": EPISODE,
@@ -130,7 +136,11 @@ def test_readers_give_no_value_where_there_is_nothing(monkeypatch, name):
 def test_the_new_entries_are_per_layer_metrics_of_their_cells():
     entries = {m["name"]: m for m in MAN["per_layer"]}
     names = [m["name"] for m in MAN["per_layer"]]
-    assert names[-len(NEW):] == list(NEW)       # appended, in order
+    # appended after the first entries as one block, in order; later
+    # entries may follow it
+    start = names.index(next(iter(NEW)))
+    assert names[start:start + len(NEW)] == list(NEW)
+    assert set(FIRST) <= set(names[:start])
     moves = {"sweep-paper-policies": "cells_per_s"}
     for name, cells in NEW.items():
         m = entries[name]

@@ -6,12 +6,26 @@ import numpy as np
 import pytest
 import torch
 
-from dcbench import compare, inputs, program
+from dcbench import compare, harness, inputs, program
 from dcbench.reference import sim as ref_sim
 
 FLEET = {"hosts": 40, "host_categories": "paper-table5", "leaves": 8,
          "spines": 2, "link_bw_mbps": 1000.0, "link_loss": 0.0,
          "link_delay_ms": 0.05}
+TOPOLOGY = harness.load_topology(FLEET)
+CPU = torch.device("cpu")
+
+
+def fabric():
+    """The reference's spine-leaf fabric of ``FLEET`` on the CPU."""
+    return TOPOLOGY.reference.build_net(FLEET, CPU)
+
+
+def port_state(hosts, cols):
+    """(the port's initial state over ``FLEET``'s fabric, n_hosts,
+    n_nodes) on the CPU."""
+    net, H, N = TOPOLOGY.port.build(FLEET, "cpu")
+    return program.initial_state(hosts, cols, net, "cpu"), H, N
 
 
 def small_sim(**over):
@@ -50,7 +64,8 @@ def test_workload_draws_are_the_ports(arrival):
 def test_host_tables_are_the_ports(n_hosts, n_leaf):
     p = program.port()
     want = p.datacenter.scaled_hosts(n_hosts, n_leaf, device="cpu")
-    got = inputs.host_tables(n_hosts, n_leaf)
+    got = inputs.host_tables(TOPOLOGY.port.host_switch(
+        {"hosts": n_hosts, "leaves": n_leaf}))
     for k, f in (("cap", "cap"), ("speed", "speed"), ("price", "price"),
                  ("leaf", "leaf")):
         np.testing.assert_array_equal(got[k], getattr(want, f).numpy())
@@ -58,9 +73,9 @@ def test_host_tables_are_the_ports(n_hosts, n_leaf):
 
 def port_run(sim, policy, seed, plan=None, arrival="paper"):
     p = program.port()
-    hosts = inputs.host_tables(FLEET["hosts"], FLEET["leaves"])
+    hosts = inputs.host_tables(TOPOLOGY.port.host_switch(FLEET))
     cols = inputs.workload(sim, arrival, seed)
-    sim0, H, N = program.initial_state(hosts, cols, FLEET, "cpu")
+    sim0, H, N = port_state(hosts, cols)
     cfg = program.sim_config(sim)
     final, out = p.engine.run_sim(
         sim0, cfg, p.scheduling.get_policy(policy, device="cpu"), H, N,
@@ -78,8 +93,8 @@ def port_run(sim, policy, seed, plan=None, arrival="paper"):
 def test_reference_is_the_ports_cpu_run(policy, mode):
     sim = small_sim(delay_mode=mode)
     state, summ, hosts, cols = port_run(sim, policy, seed=3)
-    s, series, _ = ref_sim.run(hosts, cols, FLEET, sim, policy,
-                               sim["horizon"], torch.device("cpu"))
+    s, series, _ = ref_sim.run(hosts, cols, fabric(), sim, policy,
+                               sim["horizon"], CPU)
     ref_state = compare.reference_state(s)
     for k in compare.INT_STATE + compare.FLOAT_STATE + ("h.n", "rr"):
         np.testing.assert_array_equal(state[k], ref_state[k], err_msg=k)
@@ -95,8 +110,8 @@ def test_streamed_and_telescoped_runs_match_the_reference(telescope):
     p = program.port()
     plan = p.types.ExecPlan(chunk=16, telescope=telescope)
     state, summ, hosts, cols = port_run(sim, "netaware", seed=4, plan=plan)
-    s, series, _ = ref_sim.run(hosts, cols, FLEET, sim, "netaware", 60,
-                               torch.device("cpu"))
+    s, series, _ = ref_sim.run(hosts, cols, fabric(), sim, "netaware", 60,
+                               CPU)
     got = compare.numbers(state, summ, compare.reference_state(s),
                           compare.reference_summary(series))
     assert got["decisions_differ"] == 0 and got["state_gap"] == 0.0
@@ -107,9 +122,9 @@ def test_streamed_and_telescoped_runs_match_the_reference(telescope):
 def test_scenario_overrides_reach_the_reference():
     sim = small_sim()
     p = program.port()
-    hosts = inputs.host_tables(FLEET["hosts"], FLEET["leaves"])
+    hosts = inputs.host_tables(TOPOLOGY.port.host_switch(FLEET))
     cols = inputs.workload(sim, "paper", 6)
-    sim0, H, N = program.initial_state(hosts, cols, FLEET, "cpu")
+    sim0, H, N = port_state(hosts, cols)
     cfg = program.sim_config(sim)
     spec = p.scenario.ScenarioSpec("lossy_net", bw=500.0, loss=0.02)
     final, _ = p.engine.run_sim(sim0, cfg, p.scheduling.get_policy(
@@ -117,13 +132,73 @@ def test_scenario_overrides_reach_the_reference():
         params=spec.run_params(cfg, "cpu"))
     fields = {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)
               if f.name in ("bw", "loss")}
-    s, _, _ = ref_sim.run(hosts, cols, FLEET, sim, "netaware",
-                          sim["horizon"], torch.device("cpu"),
-                          scenario=fields)
+    s, _, _ = ref_sim.run(hosts, cols, fabric(), sim, "netaware",
+                          sim["horizon"], CPU, scenario=fields)
     ref_state = compare.reference_state(s)
     state = program.state_to_host(final)
     for k in compare.INT_STATE + compare.FLOAT_STATE:
         np.testing.assert_array_equal(state[k], ref_state[k], err_msg=k)
+
+
+def sum4(g):
+    """The reference's path sum as it stood for four-link paths alone."""
+    return ((g[..., 0] + g[..., 1]) + g[..., 2]) + g[..., 3]
+
+
+def spread(shape, seed):
+    """Values over six decades with mixed signs: another association of
+    their sums rounds otherwise."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g) \
+        * 10.0 ** torch.randint(-3, 3, shape, generator=g)
+
+
+@pytest.mark.parametrize("shape", [(64, 4), (40, 40, 4)])
+def test_the_link_sum_is_the_four_link_sum_bit_for_bit(shape):
+    x = spread(shape, 0)
+    assert torch.equal(ref_sim._sum_links(x), sum4(x))
+
+
+def test_the_link_sum_adds_six_links_left_to_right():
+    x = spread((40, 40, 6), 1)
+    left = ((((x[..., 0] + x[..., 1]) + x[..., 2]) + x[..., 3])
+            + x[..., 4]) + x[..., 5]
+    right = x[..., 0] + (x[..., 1] + (x[..., 2] + (x[..., 3]
+                                                   + (x[..., 4] + x[..., 5]))))
+    assert torch.equal(ref_sim._sum_links(x), left)
+    assert not torch.equal(left, right)      # the order is what is pinned
+
+
+def padded_to_six(links):
+    pad = torch.full(links.shape[:-1] + (2,), -1, dtype=links.dtype)
+    return torch.cat([links, pad], dim=-1)
+
+
+def test_paths_padded_to_six_links_give_the_same_network():
+    """The derived tables read a path of any length: four links and two
+    pads give the four-link tables bit for bit."""
+    base = fabric()
+    six = dict(base, path_links=padded_to_six(base["path_links"]))
+    for over in ({}, {"bw": 500.0, "loss": 0.02}):
+        a, b = ref_sim.network(base, **over), ref_sim.network(six, **over)
+        for k in ("delay_matrix", "path_loss", "comm_cost", "link_bw_kbps"):
+            assert torch.equal(a[k], b[k]), (over, k)
+
+
+def test_the_waterfill_takes_paths_of_six_links():
+    g = torch.Generator().manual_seed(2)
+    F, E = 200, 56
+    links = torch.randint(0, E, (F, 4), generator=g, dtype=torch.int32)
+    links[torch.rand(F, 4, generator=g) < 0.3] = -1
+    active = torch.rand(F, generator=g) < 0.7
+    bw = torch.rand(E, generator=g) * 1e5 + 1e3
+    tcp = torch.where(torch.rand(F, generator=g) < 0.5,
+                      torch.rand(F, generator=g) * 1e4, torch.tensor(1e9))
+    four = ref_sim._waterfill(links, active, bw, tcp, 8)
+    six = ref_sim._waterfill(padded_to_six(links), active, bw, tcp, 8)
+    for a, b in zip(four, six):
+        assert torch.equal(a, b)
+    assert four[0][active].gt(0).any()
 
 
 def blocked_apsp(A, tile):

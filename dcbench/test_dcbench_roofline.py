@@ -25,6 +25,15 @@ def test_seg_waterfill_bound_at_the_real_size():
     assert peaks.bound_s(w) == pytest.approx(w["bytes"] / 3.35e12)
 
 
+@pytest.mark.parametrize("F,E", [(12000, 2800), (600, 28)])
+def test_seg_waterfill_work_counts_each_link_id_of_a_path(F, E):
+    four = peaks.seg_waterfill_work(F, E)
+    assert four == peaks.seg_waterfill_work(F, E, hops=4)
+    six = peaks.seg_waterfill_work(F, E, hops=6)
+    assert six["bytes"] - four["bytes"] == 8 * F
+    assert six["flops"] == four["flops"] == 0.0
+
+
 @pytest.mark.parametrize("fn,args", [
     (peaks.fw_minplus_work, (2402,)), (peaks.fw_minplus_work, (26,)),
     (peaks.seg_waterfill_work, (12000, 2800)),
@@ -64,3 +73,14 @@ def test_roofline_readers_share_the_bound_out_of_the_time():
     assert reading("fw_minplus_roofline", 1.7, 0, shapes) is None
     assert reading("fw_minplus_roofline", 1.7, 1,
                    dict(shapes, fw_n=None)) is None
+
+
+def test_the_waterfill_reader_takes_the_paths_length():
+    shapes = {"fw_n": 125, "waterfill_F": 3000, "waterfill_E": 200}
+    four = reading("seg_waterfill_roofline", 0.05, 2, shapes)
+    assert four == reading("seg_waterfill_roofline", 0.05, 2,
+                           dict(shapes, waterfill_hops=4))
+    six = reading("seg_waterfill_roofline", 0.05, 2,
+                  dict(shapes, waterfill_hops=6))
+    work = lambda h: peaks.seg_waterfill_work(3000, 200, h)["bytes"]
+    assert six / four == pytest.approx(work(6) / work(4))

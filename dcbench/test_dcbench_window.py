@@ -56,8 +56,9 @@ def small_ctx(traffic):
     sim = dict(spec.config["sim"])
     sim.update(n_jobs=20, n_tasks=60, n_containers=60, arrival_window=8.0)
     sim.update(traffic["sim"])
-    return SimpleNamespace(config={"fleet": fleet}, traffic=traffic,
-                           sim=sim, seed=2**31 + 3,
+    return SimpleNamespace(config={"fleet": fleet},
+                           topology=harness.load_topology(fleet),
+                           traffic=traffic, sim=sim, seed=2**31 + 3,
                            device=torch.device("cpu"))
 
 
