@@ -21,6 +21,11 @@ Phases, in order, each of which fails the script when it fails:
      CUDA launches per call and its dynamic shared memory; timed at
      F = 12000 (both variants), F = 600 and on the hot link, and the
      shared-memory variant at 0, 1 and 8 rounds on those three inputs;
+     at P = 6 on the fattree1k-backlog cell's fabric (the k = 16 fat
+     tree, E = 3072): F = 30,720 (the global variant) and the largest F
+     the shared-memory variant holds there (10,593; by both variants),
+     rates and load bit for bit against the plain version, each variant
+     timed, the plain version and the bound at F = 30,720;
      the tick's float segment sums on the card bit for bit against the
      CPU: per-link sums on the hot link and on paper flows,
      _free_resources at 2000 hosts / 6000 containers with a third on one
@@ -233,7 +238,9 @@ Phases, in order, each of which fails the script when it fails:
      in error, every status as cell_is_runnable, its wall time printed
      (--mesh single: both meshes took over the 3 minutes allowed);
   8. seg_waterfill's device events per call of each variant at F = 12000
-     under torch.profiler (20 calls each), with each event's device time:
+     and of the variant the wrapper picks on phase 2's two six-link
+     shapes under torch.profiler (20 calls each), with each event's
+     device time:
      the shared-memory variant must be one kernel and no memset, the
      global one four kernels and two memsets; fw_minplus's at n = 2402 (10
      calls): two kernels per pivot block (76) and no memset (last, so that
@@ -458,10 +465,10 @@ def waterfill_ops(links, active, E, n_rounds=8):
 
 
 def main_path_flows(net, n_hosts, F, seed):
-    """F flows between random hosts of ``net``, routed on its ECMP paths
-    as network.flow_rates routes them (inactive flows all -1), with a
-    Mathis cap on 30% of them: (links [F,4] i32, active [F] bool,
-    link_bw_kbps [E], tcp_cap [F])."""
+    """F flows between random hosts of ``net``, routed on its paths as
+    network.flow_rates routes them (inactive flows all -1), with a Mathis
+    cap on 30% of them: (links [F,P] i32, P the fabric's path width,
+    active [F] bool, link_bw_kbps [E], tcp_cap [F])."""
     r = np.random.default_rng(seed)
     src = torch.tensor(r.integers(0, n_hosts, F), device=DEV)
     dst = torch.tensor(r.integers(0, n_hosts, F), device=DEV)
@@ -597,27 +604,104 @@ def check_waterfill(real_net, n_hosts):
         plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
 
 
+def six_link_inputs():
+    """seg_waterfill's inputs on the fattree1k-backlog cell's fabric (the
+    k = 16 fat tree: 1024 hosts, E = 3072 links, paths of 2, 4 and 6
+    links, network.FatTreeSpec): {name: (args, variant)} at the cell's
+    F = 30,720 flow slots (the global variant) and at the largest F the
+    shared-memory variant holds at P = 6 over those links."""
+    spec = network.FatTreeSpec(k=16)
+    net = network.build_network(spec, device=DEV)
+    H, E = spec.n_hosts, spec.n_links
+    f_smem = (sw_mod.SMEM_LIMIT - sw_mod.smem_bytes(0, E, 6)) // (2 * 6 + 5)
+    assert sw_mod.variant(f_smem, E, 6) == "smem"
+    assert sw_mod.variant(f_smem + 1, E, 6) == "global"
+    assert sw_mod.variant(30720, E, 6) == "global"
+    return {f"P=6 F=30720,E={E}": (main_path_flows(net, H, 30720, seed=11),
+                                   "global"),
+            f"P=6 F={f_smem},E={E}": (main_path_flows(net, H, f_smem,
+                                                      seed=12), "smem")}
+
+
+def check_waterfill_six_links():
+    """seg_waterfill at P = 6 (six_link_inputs): each shape through the
+    wrapper and by each variant that takes it (the global one takes
+    both) against the plain version run on the CPU on the same inputs,
+    rates and load bit for bit; the wrapper's variant and its launches;
+    both variants timed, the plain version at F = 30,720 on the card, and
+    the bound at F = 30,720.  Returns the seg_waterfill row's
+    ``six_links`` entry."""
+    out = {}
+    for name, (args, picked) in six_link_inputs().items():
+        F, P = args[0].shape
+        E = args[2].shape[0]
+        assert P == 6 and int((args[0] >= 0).sum(1).max()) == 6
+        assert sw_mod.variant(F, E, P) == picked
+        rr, lr = seg_waterfill_ref(*(a.cpu() for a in args))
+        runs = {"wrapper": seg_waterfill}
+        runs.update({w: WATERFILL_VARIANTS[w] for w in
+                     ("smem", "global") if w == picked or w == "global"})
+        for how, fn in runs.items():
+            before = LAUNCHES["seg_waterfill"]
+            rk, lk = (t.cpu() for t in fn(*args))
+            assert LAUNCHES["seg_waterfill"] == before + 1
+            if not (torch.equal(rk, rr) and torch.equal(lk, lr)):
+                raise AssertionError(
+                    f"seg_waterfill {name} ({how}): differs from the plain "
+                    f"version, rates max {(rk - rr).abs().max().item()}, "
+                    f"load max {(lk - lr).abs().max().item()}")
+        times = {w: time_ms(lambda: WATERFILL_VARIANTS[w](*args))
+                 for w in runs if w != "wrapper"}
+        row = dict(variant=picked,
+                   launches=sw_mod.CUDA_LAUNCHES_PER_CALL[picked],
+                   smem_bytes=sw_mod.smem_bytes(F, E, P), ms=times[picked],
+                   **{f"ms_{w}": t for w, t in times.items()})
+        links, active, _, _ = args
+        if F == 30720:
+            n_bytes = sum(t.numel() * t.element_size() for t in args) \
+                + 4 * (F + E)
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                n_bytes, waterfill_ops(links, active, E))
+            row["plain_ms"] = time_ms(lambda: seg_waterfill_ref(*args))
+        out[name] = row
+        log(f"seg_waterfill {name}: the wrapper picks variant {picked} "
+            f"({row['launches']} CUDA launch(es) a call"
+            f"{', 2 memsets' if picked == 'global' else ''}); "
+            f"{' and '.join(w for w in runs if w != 'wrapper')} bit for bit "
+            f"against the plain version (rates and load); "
+            + ", ".join(f"{w} {t:.4f} ms" for w, t in times.items())
+            + (f"; plain {row['plain_ms']:.4f} ms, bound "
+               f"{row['bound_ms']:.6f} ms ({row['bound_by']})"
+               if "bound_ms" in row else ""))
+    return out
+
+
 def check_waterfill_launches(real_net, n_hosts, calls=20):
     """Phase 8: the device events of each seg_waterfill variant at
-    F = 12000 under torch.profiler, per call over ``calls`` calls: the
-    shared-memory variant must be one kernel and no memset, the global
-    one four kernels and two memsets; prints each event's device time.
-    Last, so that no profiler session precedes the timed phases."""
+    F = 12000, and at P = 6 on six_link_inputs' shapes, under
+    torch.profiler, per call over ``calls`` calls: the shared-memory
+    variant must be one kernel and no memset, the global one four
+    kernels and two memsets; prints each event's device time.  Last, so
+    that no profiler session precedes the timed phases."""
     main = main_path_flows(real_net, n_hosts, 12000, seed=1)
-    for which, want_kernels, want_memsets in (("smem", 1, 0),
-                                              ("global", 4, 2)):
+    cases = [("F=12000", main, "smem", 1, 0),
+             ("F=12000", main, "global", 4, 2)]
+    for name, (args, picked) in six_link_inputs().items():
+        cases += [(name, args, picked, 1, 0) if picked == "smem" else
+                  (name, args, "global", 4, 2)]
+    for name, args, which, want_kernels, want_memsets in cases:
         events, _ = device_events(
-            lambda: WATERFILL_VARIANTS[which](*main), calls)
+            lambda: WATERFILL_VARIANTS[which](*args), calls)
         ours = sum(c for n, (_, c) in events.items()
                    if "waterfill" in n or n.startswith("csr_"))
         memsets = sum(c for n, (_, c) in events.items() if "Memset" in n)
         if (ours, memsets) != (want_kernels, want_memsets):
-            raise AssertionError(f"seg_waterfill {which}: device events per "
-                                 f"call {events}")
+            raise AssertionError(f"seg_waterfill {name} {which}: device "
+                                 f"events per call {events}")
         total = sum(ms for ms, _ in events.values())
         split = "; ".join(f"{n} {ms:.4f} ms x{c:g}" for n, (ms, c) in
                           sorted(events.items(), key=lambda r: -r[1][0]))
-        log(f"seg_waterfill F=12000 variant {which}: device events per call "
+        log(f"seg_waterfill {name} variant {which}: device events per call "
             f"over {calls} calls, {total:.4f} ms in all: {split}")
 
 
@@ -887,6 +971,7 @@ def check_place_round(K=64, horizon=20, tail=150):
 
 def check_kernels(real_net, n_hosts):
     rows = {"seg_waterfill": check_waterfill(real_net, n_hosts)}
+    rows["seg_waterfill"]["six_links"] = check_waterfill_six_links()
     _, paper_net = build_paper_network(SimConfig(), device=DEV)
     check_segment_sums(paper_net, real_net.link_bw_kbps.shape[0])
     rows["fw_minplus"] = check_fw()

@@ -13,9 +13,14 @@ analytic flow-level model:
 Every per-link reduction is a :func:`segment_sum` onto E segments in
 slot order (id E marks a pad slot, dropped), the order ``jax.ops.segment_sum``
 adds in on the CPU, so the float sums agree with the JAX package, and the
-card's with the CPU's.  Sums
-over a path's four links are written out left to right for the same
+card's with the CPU's.  Sums over a path's links (four on the spine-leaf
+fabric, six on the fat tree) are written out left to right for the same
 reason.
+
+Two fabrics build the same :class:`NetState`: the paper's spine-leaf
+(:class:`SpineLeafSpec`) and the k-ary fat tree of Al-Fares et al.
+(:class:`FatTreeSpec`).  Host ``h``'s access link is link ``h`` in both,
+and a path is padded with -1 to the fabric's longest (its width P).
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.types import NetState, resolve_device, take
 
 INF = 1e9
@@ -33,7 +39,7 @@ LOCAL_RATE_KBPS = 4.0e6  # same-host "loopback" transfer rate
 # comm-cost weights every policy's weight vector defaults to
 # (scheduling.weight_vector); the engine re-weights at every refresh
 DEFAULT_UTIL_WEIGHT = 1.0     # ms-equivalent at 100% path utilization
-DEFAULT_CROSS_LEAF_MS = 0.05  # penalty for transiting the spine
+DEFAULT_CROSS_LEAF_MS = 0.05  # penalty for leaving the first-hop switch
 
 F32 = torch.float32
 
@@ -60,14 +66,46 @@ class SpineLeafSpec:
         return self.n_hosts + self.n_leaf * self.n_spine
 
 
-def build_network(spec: SpineLeafSpec, device=None) -> NetState:
-    """Link tables + deterministic ECMP paths for a spine-leaf fabric.
+@dataclasses.dataclass(frozen=True)
+class FatTreeSpec:
+    """The k-ary fat tree (Al-Fares, Loukissas and Vahdat, SIGCOMM 2008,
+    §3): k pods of k/2 edge and k/2 aggregation switches, (k/2)^2 core
+    switches, k^3/4 hosts, k/2 hosts an edge switch; every link at one
+    bandwidth, delay and loss."""
+    k: int = 4
+    link_bw_mbps: float = 1000.0
+    link_delay_ms: float = 0.05
+    loss: float = 0.0
 
-    Node numbering: hosts [0, H), leaves [H, H+L), spines [H+L, H+L+S).
+    def __post_init__(self):
+        if self.k < 2 or self.k % 2:
+            raise ValueError(f"a fat tree's k must be even and >= 2, "
+                             f"got {self.k}")
+
+    @property
+    def n_hosts(self) -> int:
+        return self.k ** 3 // 4
+
+    @property
+    def n_edge(self) -> int:
+        """Edge switches (and as many aggregation switches): k^2/2."""
+        return self.k * self.k // 2
+
+    @property
+    def n_nodes(self) -> int:
+        return self.n_hosts + 2 * self.n_edge + (self.k // 2) ** 2
+
+    @property
+    def n_links(self) -> int:
+        return 3 * self.n_hosts
+
+
+def _spine_leaf_tables(spec: SpineLeafSpec) -> tuple:
+    """Node numbering: hosts [0, H), leaves [H, H+L), spines [H+L, H+L+S).
     Link numbering: host-leaf links [0, H) (link i connects host i to its
-    leaf), then leaf-spine links H + l * S + s.
-    """
-    device = resolve_device(device)
+    leaf ``i % L``), then leaf-spine links H + l * S + s.  Paths: two links
+    within a leaf; across, deterministic ECMP hashes pair (i, j) onto spine
+    (i + j) % S."""
     H, L, S = spec.n_hosts, spec.n_leaf, spec.n_spine
     E = spec.n_links
 
@@ -83,7 +121,6 @@ def build_network(spec: SpineLeafSpec, device=None) -> NetState:
     link_v[H:] = (H + L + s).reshape(-1)
     link_bw[H:] = spec.leaf_spine_bw
 
-    # Deterministic ECMP: pair (i, j) hashes onto spine (i + j) % S.
     I, J = np.meshgrid(np.arange(H), np.arange(H), indexing="ij")
     li, lj = host_leaf[I], host_leaf[J]
     same = (li == lj) & (I != J)
@@ -97,6 +134,71 @@ def build_network(spec: SpineLeafSpec, device=None) -> NetState:
     path_links[cross, 2] = (H + lj * S + spine)[cross]
     path_links[cross, 3] = J[cross]
     path_nlinks = np.where(same, 2, np.where(cross, 4, 0)).astype(np.int32)
+    return link_u, link_v, link_bw, path_links, path_nlinks
+
+
+def _fat_tree_tables(spec: FatTreeSpec) -> tuple:
+    """With h = k/2: host d hangs off edge switch ``d % (k^2/2)``, at index
+    ``j = d // (k^2/2)`` under it; edge switch e is in pod ``e // h`` at
+    index ``s = e % h``; core switch ``c = a * h + m`` links to aggregation
+    switch a of every pod.  Nodes: hosts, edges, aggregations (pod p's
+    a-th at ``p * h + a``), cores.  Links: host d's is link d; edge (p, s)
+    to aggregation (p, a) is ``H + p h^2 + s h + a``; aggregation (p, a)
+    to core port m is ``H + k h^2 + p h^2 + a h + m``.  Routing by the
+    paper's two-level suffix tables (§3.3): edge index s goes up to
+    aggregation ``a = (j_dst + s) % h``, which goes up to core port
+    ``m = (j_dst + a) % h``; the path comes down through the destination
+    pod's aggregation a and its edge.  Paths of 2 links under one edge, 4
+    within a pod, 6 across pods."""
+    k, h = spec.k, spec.k // 2
+    H, n_edge = spec.n_hosts, spec.n_edge
+    d = np.arange(H)
+    edge, below = d % n_edge, d // n_edge
+    pod, idx = edge // h, edge % h
+    # (p, x, y) in link order: edge (p, s = x) to aggregation (p, a = y),
+    # then aggregation (p, a = x) to core port m = y
+    p, x, y = (g.reshape(-1) for g in np.meshgrid(
+        np.arange(k), np.arange(h), np.arange(h), indexing="ij"))
+    link_u = np.concatenate([d, H + p * h + x, H + n_edge + p * h + x])
+    link_v = np.concatenate([H + edge, H + n_edge + p * h + y,
+                             H + 2 * n_edge + x * h + y])
+    link_u, link_v = link_u.astype(np.int32), link_v.astype(np.int32)
+    link_bw = np.full(spec.n_links, spec.link_bw_mbps, np.float32)
+
+    I, J = np.meshgrid(d, d, indexing="ij")
+    pi, pj, si, sj = pod[I], pod[J], idx[I], idx[J]
+    up = (below[J] + si) % h                      # aggregation a
+    core = (below[J] + up) % h                    # core port m
+    same_edge = (edge[I] == edge[J]) & (I != J)
+    same_pod = (pi == pj) & (edge[I] != edge[J])
+    cross = pi != pj
+    edge_up = H + pi * h * h + si * h + up
+    edge_down = H + pj * h * h + sj * h + up
+    pl = np.full((H, H, 6), -1, np.int32)
+    pl[..., 0] = np.where(same_edge | same_pod | cross, I, -1)
+    pl[same_edge, 1] = J[same_edge]
+    pl[same_pod, 1] = edge_up[same_pod]
+    pl[same_pod, 2] = edge_down[same_pod]
+    pl[same_pod, 3] = J[same_pod]
+    pl[cross, 1] = edge_up[cross]
+    pl[cross, 2] = (H + k * h * h + pi * h * h + up * h + core)[cross]
+    pl[cross, 3] = (H + k * h * h + pj * h * h + up * h + core)[cross]
+    pl[cross, 4] = edge_down[cross]
+    pl[cross, 5] = J[cross]
+    nl = (2 * same_edge + 4 * same_pod + 6 * cross).astype(np.int32)
+    return link_u, link_v, link_bw, pl, nl
+
+
+def build_network(spec: SpineLeafSpec | FatTreeSpec, device=None) -> NetState:
+    """Link tables + deterministic paths of the fabric ``spec`` describes:
+    the spine-leaf (:func:`_spine_leaf_tables`) or the fat tree
+    (:func:`_fat_tree_tables`); ``path_links`` [H, H, P] with -1 pads,
+    ``path_nlinks`` [H, H] (0 from a host to itself)."""
+    device = resolve_device(device)
+    tables = (_fat_tree_tables if isinstance(spec, FatTreeSpec)
+              else _spine_leaf_tables)
+    link_u, link_v, link_bw, path_links, path_nlinks = tables(spec)
+    H, E = spec.n_hosts, spec.n_links
 
     t = lambda x: torch.as_tensor(x, device=device)
     base_delay = t(np.full(E, spec.link_delay_ms, np.float32))
@@ -152,9 +254,14 @@ def set_link_params(net: NetState, bw: float | None = None,
 # ---------------------------------------------------------------------------
 # Delay model
 # ---------------------------------------------------------------------------
-def _sum4(g: torch.Tensor) -> torch.Tensor:
-    """Sum over a trailing axis of 4, added left to right."""
-    return ((g[..., 0] + g[..., 1]) + g[..., 2]) + g[..., 3]
+def _sum(g: torch.Tensor) -> torch.Tensor:
+    """Sum over the trailing path axis of P links, added left to right:
+    ((g0 + g1) + g2) + ...  At P = 4 these are the spine-leaf fabric's
+    four-link sums, operation for operation."""
+    total = g[..., 0] + g[..., 1]
+    for i in range(2, g.shape[-1]):
+        total = total + g[..., i]
+    return total
 
 
 def _padded(x: torch.Tensor) -> torch.Tensor:
@@ -172,14 +279,14 @@ def congested_link_delay(net: NetState, q_coef=0.5,
 def path_delay_matrix(link_delay: torch.Tensor,
                       path_links: torch.Tensor) -> torch.Tensor:
     """Host-to-host delay along the fixed ECMP path ('path' mode)."""
-    return _sum4(_padded(link_delay)[path_links.long()])
+    return _sum(_padded(link_delay)[path_links.long()])
 
 
 def path_loss_matrix(link_loss: torch.Tensor,
                      path_links: torch.Tensor) -> torch.Tensor:
     """End-to-end loss 1 - prod(1 - loss_e) along each ECMP path."""
     keep = _padded(torch.log1p(-torch.clamp(link_loss, 0.0, 0.99)))
-    return 1.0 - torch.exp(_sum4(keep[path_links.long()]))
+    return 1.0 - torch.exp(_sum(keep[path_links.long()]))
 
 
 def path_util_matrix(net: NetState) -> torch.Tensor:
@@ -188,7 +295,7 @@ def path_util_matrix(net: NetState) -> torch.Tensor:
 
 
 def path_util_row(net: NetState, src: torch.Tensor) -> torch.Tensor:
-    """One source row of :func:`path_util_matrix` — f32[H], O(H·4)."""
+    """One source row of :func:`path_util_matrix` — f32[H], O(H·P)."""
     return _padded(net.link_util)[take(net.path_links, src).long()] \
         .amax(dim=-1)
 
@@ -197,10 +304,13 @@ def pairwise_comm_cost(net: NetState, util_weight=DEFAULT_UTIL_WEIGHT,
                        cross_leaf_ms=DEFAULT_CROSS_LEAF_MS) -> torch.Tensor:
     """Expected cost [ms-equivalent] of communicating between host pairs:
     delay + ``util_weight`` * bottleneck path utilization + a
-    ``cross_leaf_ms`` penalty for pairs whose path transits the spine."""
-    cross_spine = (net.path_nlinks >= 4).to(F32)
+    ``cross_leaf_ms`` penalty for pairs whose path leaves the first-hop
+    switch (four links or more: across the spine of a spine-leaf fabric;
+    within a pod or across pods of a fat tree alike, which then differ by
+    two links of delay and the path's bottleneck utilization)."""
+    leaves_switch = (net.path_nlinks >= 4).to(F32)
     return (net.delay_matrix + util_weight * path_util_matrix(net)
-            + cross_leaf_ms * cross_spine)
+            + cross_leaf_ms * leaves_switch)
 
 
 def adjacency_from_links(net: NetState, link_delay: torch.Tensor,
@@ -239,23 +349,31 @@ def update_delay_matrix(net: NetState, n_hosts: int, n_nodes: int,
     mode='path' — sum link delays along the fixed ECMP path (O(H^2)).
     mode='fw'   — full APSP over the node graph (the SDN-controller view),
                   through the ``fw_minplus`` kernel when ``use_kernel``.
+
+    Under a profiler the shortest paths (the adjacency and the APSP, or
+    the path sum) are the span ``apsp`` and the comm-cost rebuild the span
+    ``comm_cost`` (``core/trace.py``).
     """
     d_link = congested_link_delay(net, q_coef=q_coef)
-    if mode == "path":
-        D = path_delay_matrix(d_link, net.path_links)
-    elif mode == "fw":
-        A = adjacency_from_links(net, d_link, n_nodes)
-        if use_kernel:
-            from repro_torch.kernels.fw_minplus import floyd_warshall
-            D_full = floyd_warshall(A)
+    with trace.span("apsp"):
+        if mode == "path":
+            D = path_delay_matrix(d_link, net.path_links)
+        elif mode == "fw":
+            A = adjacency_from_links(net, d_link, n_nodes)
+            if use_kernel:
+                from repro_torch.kernels.fw_minplus import floyd_warshall
+                D_full = floyd_warshall(A)
+            else:
+                D_full = floyd_warshall_ref(A)
+            D = D_full[:n_hosts, :n_hosts].contiguous()
         else:
-            D_full = floyd_warshall_ref(A)
-        D = D_full[:n_hosts, :n_hosts].contiguous()
-    else:
-        raise ValueError(f"delay mode must be 'path' or 'fw', got {mode!r}")
+            raise ValueError(
+                f"delay mode must be 'path' or 'fw', got {mode!r}")
     net = net._replace(delay_matrix=D)
-    return net._replace(comm_cost=pairwise_comm_cost(
-        net, util_weight=util_weight, cross_leaf_ms=cross_leaf_ms))
+    with trace.span("comm_cost"):
+        cost = pairwise_comm_cost(net, util_weight=util_weight,
+                                  cross_leaf_ms=cross_leaf_ms)
+    return net._replace(comm_cost=cost)
 
 
 # ---------------------------------------------------------------------------
@@ -266,7 +384,7 @@ def path_membership(path_links: torch.Tensor, src: torch.Tensor,
                     dst: torch.Tensor, n_links: int) -> torch.Tensor:
     """[F, E] bool: does flow f traverse link e.  Same-host flows hit no
     link."""
-    links = path_links[src.long(), dst.long()]                 # [F, 4]
+    links = path_links[src.long(), dst.long()]                 # [F, P]
     ids = torch.arange(n_links, device=links.device)
     return (links[:, :, None] == ids[None, None, :]).any(dim=1)
 
@@ -350,12 +468,12 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor,
 def max_min_fair_rates_sparse(flow_links: torch.Tensor, active: torch.Tensor,
                               link_bw_kbps: torch.Tensor,
                               n_rounds: int = 8) -> torch.Tensor:
-    """Sparse progressive filling over the [F, 4] per-flow link lists: the
+    """Sparse progressive filling over the [F, P] per-flow link lists: the
     same rounds and freeze rule as :func:`max_min_fair_rates`, with every
-    per-link reduction a segment sum over at most 4 link ids per flow."""
-    F = flow_links.shape[0]
+    per-link reduction a segment sum over at most P link ids per flow."""
+    F, P = flow_links.shape
     E = link_bw_kbps.shape[0]
-    valid = (flow_links >= 0) & active[:, None]                  # [F, 4]
+    valid = (flow_links >= 0) & active[:, None]                  # [F, P]
     seg = torch.where(valid, flow_links, E).reshape(-1).long()
     w_valid = valid.to(F32)
 
@@ -368,7 +486,7 @@ def max_min_fair_rates_sparse(flow_links: torch.Tensor, active: torch.Tensor,
         share = torch.where(cnt > 0, cap_rem / torch.clamp(cnt, min=1.0),
                             INF)
         padded = torch.cat([share, share.new_full((1,), INF)])
-        return torch.where(valid, padded[seg.reshape(F, 4)], INF).amin(dim=1)
+        return torch.where(valid, padded[seg.reshape(F, P)], INF).amin(dim=1)
 
     alloc = torch.where(active, LOCAL_RATE_KBPS, 0.0)
     frozen = active & ~valid.any(dim=1)
@@ -415,6 +533,29 @@ def _mathis_from_loss(delay_matrix, p, src, dst, mss_kb, c_mathis):
     return torch.where(p > 1e-9, cap, INF)
 
 
+def _valid_slots(links: torch.Tensor) -> torch.Tensor:
+    """int32 [P]: the flows with a link id at each path position, in two
+    launches.  ``heaviside`` marks an id >= 0 with 1 in the ids' own dtype
+    (its value at 0 a host scalar), so the sum casts nothing; a cast, or
+    an explicit ``empty`` under deterministic algorithms, would launch
+    more."""
+    one = torch.ones((), dtype=links.dtype)
+    return torch.heaviside(links, one).sum(0, dtype=links.dtype)
+
+
+def flows_by_length(slots: list) -> dict:
+    """Active flows by path length from the counts of their valid link
+    slots by position (``slots[i]``: flows with more than i links; a
+    path's pads trail it): ``{"flows_<L>link": n}`` for each length L
+    that some flow had."""
+    out = {}
+    for i, n in enumerate(slots):
+        n -= slots[i + 1] if i + 1 < len(slots) else 0
+        if n:
+            out[f"flows_{i + 1}link"] = n
+    return out
+
+
 def flow_rates(net: NetState, src: torch.Tensor, dst: torch.Tensor,
                active: torch.Tensor, n_rounds: int = 8, sparse: bool = True,
                use_kernel: bool = False
@@ -425,7 +566,11 @@ def flow_rates(net: NetState, src: torch.Tensor, dst: torch.Tensor,
     runs the dense [F, E] membership oracle.  ``use_kernel`` routes the
     sparse allocation through the ``seg_waterfill`` wrapper (all rounds +
     Mathis min + link load; on a CUDA tensor, the CUDA kernel).  Returns
-    (rates [F], util [E]).
+    (rates [F], util [E]).  Under a profiler, on a fabric whose paths run
+    past four links (the fat tree), the sparse engine counts the active
+    flows by path length on the device (``flows_<L>link``, read back once,
+    when the window's records are taken: :func:`flows_by_length`); a
+    spine-leaf tick launches nothing more, traced or not.
     """
     E = net.link_bw.shape[0]
     src_c = torch.clamp(src, min=0).long()
@@ -435,6 +580,9 @@ def flow_rates(net: NetState, src: torch.Tensor, dst: torch.Tensor,
     if sparse:
         links = torch.where(active[:, None], net.path_links[src_c, dst_c],
                             -1)
+        if links.shape[1] > 4:      # paths through a fat tree's core
+            trace.count_device("flow_links", lambda: _valid_slots(links),
+                               flows_by_length)
         tcp = mathis_cap_sparse(net.delay_matrix, net.path_loss, src_c, dst_c)
         if use_kernel:
             from repro_torch.kernels.seg_waterfill import seg_waterfill

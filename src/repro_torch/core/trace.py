@@ -25,7 +25,11 @@ where the work happens (candidates tried, containers admitted).
   none) and its start and end by ``time.time_ns()``, the wall clock the
   profiler stamps its events with, so device idle gaps can be laid
   against the spans.
-* A count is a host integer added to the window's totals.
+* A count is a host integer added to the window's totals.  A device
+  count (:func:`count_device`) is a small integer tensor the port
+  computes on the device only while recording, kept there and summed
+  and read back once, when a snapshot is taken, which turns it into
+  totals: no read-back inside a tick.
 * :func:`self_ns` and :func:`syncs_by_site` read a snapshot, for the
   profiling tool (``launch/profile.py``) and the benchmark's readers.
 """
@@ -66,6 +70,7 @@ class _Records:
         self.spans = []       # [name, id, parent, start, end]
         self.stack = []       # indices of the open spans
         self.totals = {}
+        self.device = {}      # (key, shape) -> [read, [tensors]]
         self.gen += 1
 
 
@@ -119,6 +124,18 @@ def count(name: str, n: int) -> None:
     _REC.totals[name] = _REC.totals.get(name, 0) + n
 
 
+def count_device(key: str, make, read) -> None:
+    """Add the integer device tensor ``make()`` to the window's device
+    counter ``key`` (``make`` runs only while recording; nothing is read
+    back).  A snapshot sums the window's tensors of one key and shape on
+    the device, reads the sum back once as a list and adds ``read(list)``
+    (counter name -> int) to its totals."""
+    if not _active():
+        return
+    t = make()
+    _REC.device.setdefault((key, tuple(t.shape)), [read, []])[1].append(t)
+
+
 def host_sync(site: str):
     """A ``host_sync`` span around one device read-back at ``site``,
     counted as one of the window's ``syncs``."""
@@ -130,9 +147,15 @@ def host_sync(site: str):
 
 
 def snapshot() -> Snapshot:
-    """The window's spans and totals."""
+    """The window's spans and totals, its device counts read back."""
     _REC.on = _REC.on and _enabled()
-    return Snapshot([Span(*row) for row in _REC.spans], dict(_REC.totals))
+    totals = dict(_REC.totals)
+    for read, ts in _REC.device.values():
+        if len(ts) > 1:
+            ts[:] = [torch.stack(ts).sum(0)]
+        for name, n in read(ts[0].tolist()).items():
+            totals[name] = totals.get(name, 0) + n
+    return Snapshot([Span(*row) for row in _REC.spans], totals)
 
 
 def self_ns(snap: Snapshot, name: str) -> tuple:

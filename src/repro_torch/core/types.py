@@ -47,7 +47,7 @@ class HostState(NamedTuple):
     price: torch.Tensor         # f32[H]     $ per busy second
     used: torch.Tensor          # f32[H, 3]  currently committed resources
     n_containers: torch.Tensor  # i32[H]     deployed container count
-    leaf: torch.Tensor          # i32[H]     leaf switch this host hangs off
+    leaf: torch.Tensor          # i32[H]     first-hop (leaf or edge) switch
     busy_time: torch.Tensor     # f32[H]     seconds with >= 1 container
 
 
@@ -79,14 +79,16 @@ class ContainerState(NamedTuple):
 
 
 class NetState(NamedTuple):
-    """Spine-leaf network: static link tables + dynamic delay matrix."""
+    """The fabric (spine-leaf or fat tree, ``core/network.py``): static
+    link tables, paths padded with -1 to the fabric's longest (P links: 4
+    on the spine-leaf, 6 on the fat tree) + dynamic delay matrix."""
 
     link_bw: torch.Tensor       # f32[E] Mbps
     link_delay: torch.Tensor    # f32[E] ms base delay
     link_loss: torch.Tensor     # f32[E] packet loss fraction
     link_u: torch.Tensor        # i32[E] node ids of each link's ends
     link_v: torch.Tensor        # i32[E]
-    path_links: torch.Tensor    # i32[H, H, 4] ECMP path links (-1 pad)
+    path_links: torch.Tensor    # i32[H, H, P] ECMP path links (-1 pad)
     path_nlinks: torch.Tensor   # i32[H, H]
     link_bw_kbps: torch.Tensor  # f32[E] link_bw in KB/s
     path_loss: torch.Tensor     # f32[H, H] end-to-end loss along the path

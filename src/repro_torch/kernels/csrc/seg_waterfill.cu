@@ -28,15 +28,21 @@
 // its list in ascending slot order — the order index_add_ adds in on the
 // CPU and segment_sum in the JAX package — with no float atomics, so the
 // rates equal the plain version bit for bit.  Per-flow bounds are a min
-// over at most 4 shares; the global min is a block reduction (min is
+// over at most P shares; the global min is a block reduction (min is
 // order-free).
+//
+// P, the path width (a flow's link ids, -1 padded), is a compile-time
+// parameter, built for P = 4 (the spine-leaf fabric) and P = 6 (the k-ary
+// fat tree).  Flow f's ids are slots P f .. P f + P - 1.  At P = 4 a thread
+// reads them as one int4 and a slot's flow is s >> 2; at P = 6 as three
+// int2 (8-byte aligned: no unaligned vector load) and s / 6.
 //
 // Two variants, chosen by size alone (variant() in the wrapper):
 //
 //  * waterfill_smem: one launch of one 1024-thread block whose whole state
-//    lives in dynamic shared memory (13F + 17E + 132 bytes <= 232448 and
-//    F <= 16383, so that every count, offset and flow id fits 16 bits):
-//      red[32] f32 | ptr[E+1] i32 | list[4F] u16 | cnt[E] i32 |
+//    lives in dynamic shared memory ((2P + 5)F + 17E + 132 bytes <= 232448
+//    and F <= 16383, so that every count, offset and flow id fits 16 bits):
+//      red[32] f32 | ptr[E+1] i32 | list[PF] u16 | cnt[E] i32 |
 //      cap_rem[E] f32 | share[E] f32 | alloc[F] f32 | newly[F] u8 |
 //      touched[E] u8
 //    Every dependent load of a list walk is a shared-memory load instead
@@ -73,6 +79,13 @@
 
 namespace {
 
+// The flow of slot s >= 0.
+template <int P>
+__device__ __forceinline__ int slot_flow(int s) {
+  if constexpr (P == 4) return s >> 2;
+  else return s / P;
+}
+
 constexpr int kWarp = 32;
 constexpr int kBlock = 1024;
 constexpr unsigned kFull = 0xffffffffu;
@@ -83,6 +96,7 @@ constexpr unsigned kFull = 0xffffffffu;
 
 // K1: per-tile link histogram of the valid slots (integer atomics: the
 // counts do not depend on the order of the adds).
+template <int P>
 __global__ void csr_count(const int* __restrict__ links,
                           const unsigned char* __restrict__ active,
                           int n_slots, int tile, int E, int* __restrict__ hist) {
@@ -90,7 +104,7 @@ __global__ void csr_count(const int* __restrict__ links,
   const int end = min(n_slots, (b + 1) * tile);
   for (int s = b * tile + threadIdx.x; s < end; s += blockDim.x) {
     const int e = links[s];
-    if (e >= 0 && active[s >> 2] != 0) atomicAdd(&hist[b * E + e], 1);
+    if (e >= 0 && active[slot_flow<P>(s)] != 0) atomicAdd(&hist[b * E + e], 1);
   }
 }
 
@@ -140,6 +154,7 @@ csr_scan(int* __restrict__ hist, int n_tiles, int E, int* __restrict__ ptr) {
 // at a time; lanes holding the same link rank themselves by lane order
 // (__match_any_sync), so slots land in ascending slot order within each
 // link's list.
+template <int P>
 __global__ void csr_fill(const int* __restrict__ links,
                          const unsigned char* __restrict__ active, int n_slots,
                          int tile, int E, int* __restrict__ hist,
@@ -154,14 +169,14 @@ __global__ void csr_fill(const int* __restrict__ links,
     int e = -1;
     if (s < end) {
       const int l = links[s];
-      if (l >= 0 && active[s >> 2] != 0) e = l;
+      if (l >= 0 && active[slot_flow<P>(s)] != 0) e = l;
     }
     const unsigned peers = __match_any_sync(kFull, e);
     int start = 0;
     if (e >= 0) start = cursor[e];
     __syncwarp();
     if (e >= 0) {
-      list[ptr[e] + start + __popc(peers & lt)] = s >> 2;
+      list[ptr[e] + start + __popc(peers & lt)] = slot_flow<P>(s);
       if ((peers & lt) == 0u) cursor[e] = start + __popc(peers);
     }
     __syncwarp();
@@ -202,12 +217,13 @@ __device__ void link_shares(const int* __restrict__ ptr,
   }
 }
 
+template <int P>
 __device__ __forceinline__ float flow_bound(const int* __restrict__ links,
                                             const float* __restrict__ share,
                                             int f, float inf) {
   float b = inf;
-  for (int j = 0; j < 4; ++j) {
-    const int l = links[4 * f + j];
+  for (int j = 0; j < P; ++j) {
+    const int l = links[P * f + j];
     if (l >= 0) b = fminf(b, share[l]);
   }
   return b;
@@ -215,6 +231,7 @@ __device__ __forceinline__ float flow_bound(const int* __restrict__ links,
 
 // K4 (one block of 1024 threads): every round, the tail, the Mathis min
 // and the load.  Per-flow and per-link state lives in the workspace.
+template <int P>
 __global__ void __launch_bounds__(kBlock)
 waterfill(const int* __restrict__ links, const unsigned char* __restrict__ active,
           const float* __restrict__ cap, const float* __restrict__ tcp,
@@ -229,7 +246,7 @@ waterfill(const int* __restrict__ links, const unsigned char* __restrict__ activ
   for (int f = tid; f < F; f += kBlock) {
     const bool act = active[f] != 0;
     bool any = false;
-    for (int j = 0; j < 4; ++j) any |= links[4 * f + j] >= 0;
+    for (int j = 0; j < P; ++j) any |= links[P * f + j] >= 0;
     alloc[f] = act ? local_rate : 0.0f;
     frozen[f] = act && !any;   // no-link flows keep the loopback rate
   }
@@ -242,7 +259,7 @@ waterfill(const int* __restrict__ links, const unsigned char* __restrict__ activ
     float lmin = inf;
     for (int f = tid; f < F; f += kBlock) {
       float b = inf;
-      if (active[f] != 0 && frozen[f] == 0) b = flow_bound(links, share, f, inf);
+      if (active[f] != 0 && frozen[f] == 0) b = flow_bound<P>(links, share, f, inf);
       bound[f] = b;
       lmin = fminf(lmin, b);
     }
@@ -274,7 +291,7 @@ waterfill(const int* __restrict__ links, const unsigned char* __restrict__ activ
   for (int f = tid; f < F; f += kBlock) {
     const bool act = active[f] != 0;
     float a = alloc[f];
-    if (act && frozen[f] == 0) a = fminf(flow_bound(links, share, f, inf), local_rate);
+    if (act && frozen[f] == 0) a = fminf(flow_bound<P>(links, share, f, inf), local_rate);
     const float fair = act ? a : 0.0f;
     rates[f] = __fmul_rn(fminf(fair, tcp[f]), act ? 1.0f : 0.0f);
   }
@@ -291,7 +308,7 @@ waterfill(const int* __restrict__ links, const unsigned char* __restrict__ activ
 // ===========================================================================
 
 constexpr int kSmemLimit = 232448;     // dynamic shared memory of one block
-constexpr int kSmemMaxFlows = 16383;   // 4F slots: counts and ids fit u16
+constexpr int kSmemMaxFlows = 16383;   // flow ids and tile counts fit u16
 constexpr int kMaxFlowsPerThread = (kSmemMaxFlows + kBlock - 1) / kBlock;  // 16
 constexpr int kMaxKeyBits = 14;        // link ids + 1 <= E < 2^14 here
 constexpr int kPrefetch = 8;           // 32-slot groups loaded at once
@@ -300,18 +317,19 @@ constexpr unsigned kNoLink = 0xffffu;
 // PERF.md has the sweep)
 constexpr int kWarpWalkMin = 128;
 
-size_t smem_bytes(int F, int E) {
-  return 132 + 13 * (size_t)F + 17 * (size_t)E;
+size_t smem_bytes(int F, int E, int P) {
+  return 132 + (2 * (size_t)P + 5) * (size_t)F + 17 * (size_t)E;
 }
 
 // The state's arrays in dynamic shared memory, in this order.  hist (the
 // CSR build's per-tile u16 link histograms, n_tiles * E of them) lies in
 // the 13E + 5F bytes of cnt..touched, which it leaves before they are
 // first written.
+template <int P>
 struct Smem {
   float* red;              // [32]   block reductions
   int* ptr;                // [E+1]  CSR row pointer
-  unsigned short* list;    // [4F]   flow ids, ascending slot order per link
+  unsigned short* list;    // [PF]   flow ids, ascending slot order per link
   int* cnt;                // [E]    unfrozen flows on the link
   float* cap_rem;          // [E]
   float* share;            // [E]
@@ -324,7 +342,7 @@ struct Smem {
     red = reinterpret_cast<float*>(base);
     ptr = reinterpret_cast<int*>(red + kWarp);
     list = reinterpret_cast<unsigned short*>(ptr + E + 1);
-    cnt = reinterpret_cast<int*>(list + 4 * F);
+    cnt = reinterpret_cast<int*>(list + P * F);
     cap_rem = reinterpret_cast<float*>(cnt + E);
     share = cap_rem + E;
     alloc = share + E;
@@ -337,12 +355,13 @@ struct Smem {
 // The valid link of slot s: its link id when s < n_slots names one and its
 // flow is active, else -1.  n_slots >= 1.  The loads take a clamped index
 // rather than a branch, so that a loop's loads issue together.
+template <int P>
 __device__ __forceinline__ int slot_link(const int* __restrict__ links,
                                          const unsigned char* __restrict__ active,
                                          int s, int n_slots) {
   const int sc = min(s, n_slots - 1);
   const int l = __ldg(links + sc);
-  const unsigned char a = __ldg(active + (sc >> 2));
+  const unsigned char a = __ldg(active + slot_flow<P>(sc));
   return (s < n_slots && l >= 0 && a != 0) ? l : -1;
 }
 
@@ -402,9 +421,10 @@ __device__ __forceinline__ float block_min_1(float v, float* red) {
 // The link ids of a thread's flows f = k*kBlock + tid (k < K), read once
 // and kept in registers as u16 pairs (kNoLink for none), and which flows
 // are active.
-template <int K>
+template <int K, int P>
 struct FlowLinks {
-  uint32_t pair[K][2];
+  static_assert(P == 4 || P == 6, "built for paths of 4 and 6 links");
+  uint32_t pair[K][P / 2];
   uint32_t act;
 
   __device__ __forceinline__ void load(const int* __restrict__ links,
@@ -414,25 +434,44 @@ struct FlowLinks {
 #pragma unroll
     for (int k = 0; k < K; ++k) {   // F >= 1; links is 16-byte aligned
       const int f = k * kBlock + threadIdx.x, fc = min(f, F - 1);
-      const int4 v = __ldg(reinterpret_cast<const int4*>(links) + fc);
-      const unsigned char a = __ldg(active + fc);
-      const bool in = f < F;
-      pair[k][0] = (in && v.x >= 0 ? (uint32_t)v.x : kNoLink) |
-                   ((in && v.y >= 0 ? (uint32_t)v.y : kNoLink) << 16);
-      pair[k][1] = (in && v.z >= 0 ? (uint32_t)v.z : kNoLink) |
-                   ((in && v.w >= 0 ? (uint32_t)v.w : kNoLink) << 16);
-      if (in && a != 0) act |= 1u << k;
+      if constexpr (P == 4) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(links) + fc);
+        const unsigned char a = __ldg(active + fc);
+        const bool in = f < F;
+        pair[k][0] = (in && v.x >= 0 ? (uint32_t)v.x : kNoLink) |
+                     ((in && v.y >= 0 ? (uint32_t)v.y : kNoLink) << 16);
+        pair[k][1] = (in && v.z >= 0 ? (uint32_t)v.z : kNoLink) |
+                     ((in && v.w >= 0 ? (uint32_t)v.w : kNoLink) << 16);
+        if (in && a != 0) act |= 1u << k;
+      } else {   // 8-byte aligned rows of P ids
+        const int2* row = reinterpret_cast<const int2*>(links) + (P / 2) * fc;
+        int2 v[P / 2];
+#pragma unroll
+        for (int i = 0; i < P / 2; ++i) v[i] = __ldg(row + i);
+        const unsigned char a = __ldg(active + fc);
+        const bool in = f < F;
+#pragma unroll
+        for (int i = 0; i < P / 2; ++i)
+          pair[k][i] = (in && v[i].x >= 0 ? (uint32_t)v[i].x : kNoLink) |
+                       ((in && v[i].y >= 0 ? (uint32_t)v[i].y : kNoLink) << 16);
+        if (in && a != 0) act |= 1u << k;
+      }
     }
   }
   __device__ __forceinline__ uint32_t link(int k, int j) const {
     return (pair[k][j >> 1] >> (16 * (j & 1))) & kNoLink;
+  }
+  // whether flow k names a link
+  __device__ __forceinline__ bool any(int k) const {
+    if constexpr (P == 4) return (pair[k][0] & pair[k][1]) != 0xffffffffu;
+    else return (pair[k][0] & pair[k][1] & pair[k][2]) != 0xffffffffu;
   }
   // min over the flow's links of share (inf for none)
   __device__ __forceinline__ float bound(int k, const float* share,
                                          float inf) const {
     float b = inf;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < P; ++j)
       if (link(k, j) != kNoLink) b = fminf(b, share[link(k, j)]);
     return b;
   }
@@ -440,12 +479,13 @@ struct FlowLinks {
 
 // The link -> slot CSR of the valid slots, in ascending slot order within
 // each link: sh.ptr[0..E] and sh.list[0..ptr[E]).  Ends with a barrier.
-__device__ __forceinline__ void build_csr(const Smem& sh,
+template <int P>
+__device__ __forceinline__ void build_csr(const Smem<P>& sh,
                                           const int* __restrict__ links,
                                           const unsigned char* __restrict__ active,
                                           int F, int E, int n_tiles, int tile) {
   const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
-  const int n_slots = 4 * F;
+  const int n_slots = P * F;
   unsigned* hist32 = reinterpret_cast<unsigned*>(sh.hist);
   for (int i = tid; i < (n_tiles * E + 1) / 2; i += kBlock) hist32[i] = 0u;
   __syncthreads();
@@ -457,7 +497,7 @@ __device__ __forceinline__ void build_csr(const Smem& sh,
     int e[kPrefetch];
 #pragma unroll
     for (int i = 0; i < kPrefetch; ++i)
-      e[i] = slot_link(links, active, s0 + i * kBlock, n_slots);
+      e[i] = slot_link<P>(links, active, s0 + i * kBlock, n_slots);
 #pragma unroll
     for (int i = 0; i < kPrefetch; ++i) {
       if (e[i] >= 0) {
@@ -517,7 +557,7 @@ __device__ __forceinline__ void build_csr(const Smem& sh,
       int e[kPrefetch];
 #pragma unroll
       for (int i = 0; i < kPrefetch; ++i)
-        e[i] = slot_link(links, active, base + i * kWarp + lane, end);
+        e[i] = slot_link<P>(links, active, base + i * kWarp + lane, end);
 #pragma unroll
       for (int i = 0; i < kPrefetch; ++i) {
         if (base + i * kWarp >= end) break;
@@ -536,7 +576,8 @@ __device__ __forceinline__ void build_csr(const Smem& sh,
           count = __popc(peers);
         }
         if (e[i] >= 0) {
-          sh.list[pos + rank] = (unsigned short)((base + i * kWarp + lane) >> 2);
+          sh.list[pos + rank] =
+              (unsigned short)slot_flow<P>(base + i * kWarp + lane);
           if (rank == 0) cursor[e[i]] = (unsigned short)(start + count);
         }
         __syncwarp();
@@ -559,7 +600,8 @@ __device__ __forceinline__ void build_csr(const Smem& sh,
 // order from registers (the others add +0.0 in the plain version, which
 // changes no sum: a step with few of them adds those alone, one with many
 // adds all 32).  The caller clears touched after the barrier.
-__device__ __forceinline__ void update_links(const Smem& sh, int E, bool all,
+template <int P>
+__device__ __forceinline__ void update_links(const Smem<P>& sh, int E, bool all,
                                              float inf) {
   const int lane = threadIdx.x % kWarp;
   for (int e0 = threadIdx.x - lane; e0 < E; e0 += kBlock) {
@@ -623,7 +665,8 @@ __device__ __forceinline__ void update_links(const Smem& sh, int E, bool all,
 // the 32 values in slot order from registers (the lanes past the end add
 // +0.0, which changes no sum), so the sum rounds exactly as one thread's
 // walk.
-__device__ __forceinline__ void load_pass(const Smem& sh, int E,
+template <int P>
+__device__ __forceinline__ void load_pass(const Smem<P>& sh, int E,
                                           float* __restrict__ load) {
   const int lane = threadIdx.x % kWarp;
   for (int e0 = threadIdx.x - lane; e0 < E; e0 += kBlock) {
@@ -652,7 +695,7 @@ __device__ __forceinline__ void load_pass(const Smem& sh, int E,
 
 // One block of 1024 threads: the CSR build, every round, the tail, the
 // Mathis min and the load, with the state in dynamic shared memory.
-template <int K>
+template <int K, int P>
 __global__ void __launch_bounds__(kBlock, 1)
 waterfill_smem(const int* __restrict__ links,
                const unsigned char* __restrict__ active,
@@ -661,7 +704,7 @@ waterfill_smem(const int* __restrict__ links,
                int E, int n_tiles, int tile, int n_rounds, float local_rate,
                float inf) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Smem sh(smem, F, E);
+  const Smem<P> sh(smem, F, E);
   const int tid = threadIdx.x;
   if (F == 0) {   // no flow: nothing on any link
     for (int e = tid; e < E; e += kBlock) load[e] = 0.0f;
@@ -669,7 +712,7 @@ waterfill_smem(const int* __restrict__ links,
   }
   build_csr(sh, links, active, F, E, n_tiles, tile);
 
-  FlowLinks<K> fl;
+  FlowLinks<K, P> fl;
   fl.load(links, active, F);
   uint32_t live = 0;            // bit k: flow k*kBlock + tid active, unfrozen
 #pragma unroll
@@ -677,7 +720,7 @@ waterfill_smem(const int* __restrict__ links,
     const int f = k * kBlock + tid;
     if (f >= F) continue;
     const bool act = (fl.act >> k) & 1u;
-    const bool any = (fl.pair[k][0] & fl.pair[k][1]) != 0xffffffffu;
+    const bool any = fl.any(k);
     sh.alloc[f] = act ? local_rate : 0.0f;   // no-link flows keep it, frozen
     sh.newly[f] = 0;
     if (act && any) live |= 1u << k;
@@ -722,7 +765,7 @@ waterfill_smem(const int* __restrict__ links,
           sh.alloc[f] = fminf(b, local_rate);
           now_newly |= 1u << k;
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < P; ++j)
             if (fl.link(k, j) != kNoLink) sh.touched[fl.link(k, j)] = 1;
         }
       }
@@ -755,65 +798,55 @@ waterfill_smem(const int* __restrict__ links,
   load_pass(sh, E, load);
 }
 
-template <int K>
+template <int K, int P>
 int launch_smem(const int* links, const unsigned char* active,
                 const float* cap, const float* tcp, float* rates, float* load,
                 int F, int E, int n_rounds, float local_rate, float inf,
                 cudaStream_t stream) {
-  auto kernel = waterfill_smem<K>;
+  auto kernel = waterfill_smem<K, P>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   if (err != cudaSuccess) return (int)err;
   // per-tile u16 histograms in the 13E + 5F bytes of cnt..touched (zeroed
-  // as 32-bit words); at least 6 tiles for F >= 1, so a tile holds fewer
-  // than F slots
-  const int n_slots = 4 * F;
+  // as 32-bit words); at least 6 tiles for F >= 1, so a tile holds at most
+  // F + 31 slots and every count fits 16 bits
+  const int n_slots = P * F;
   int n_tiles = E > 0 ? (13 * E + 5 * F - 2) / (2 * E) : 1;
   if (n_tiles > kWarp) n_tiles = kWarp;
   const int tile = ((n_slots + n_tiles - 1) / n_tiles + kWarp - 1) / kWarp * kWarp;
-  kernel<<<1, kBlock, smem_bytes(F, E), stream>>>(
+  kernel<<<1, kBlock, smem_bytes(F, E, P), stream>>>(
       links, active, cap, tcp, rates, load, F, E, n_tiles, tile, n_rounds,
       local_rate, inf);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// One launch, no workspace; needs smem_bytes(F, E) = 13F + 17E + 132 <=
-// 232448 and F <= 16383, and links 16-byte aligned.
-int seg_waterfill_smem_launch(const int* links, const unsigned char* active,
-                              const float* cap, const float* tcp,
-                              float* rates, float* load, int F, int E,
-                              int n_rounds, float local_rate, float inf,
-                              void* stream_ptr) {
-  if (F < 0 || E < 0 || F > kSmemMaxFlows || smem_bytes(F, E) > kSmemLimit)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+// The one-launch variant at K flows a thread, K the least built that
+// holds F.
+template <int P>
+int launch_smem_for(const int* links, const unsigned char* active,
+                    const float* cap, const float* tcp, float* rates,
+                    float* load, int F, int E, int n_rounds, float local_rate,
+                    float inf, cudaStream_t stream) {
   const int per = (F + kBlock - 1) / kBlock;   // flows per thread
 #define SEG_WATERFILL_ARGS \
   links, active, cap, tcp, rates, load, F, E, n_rounds, local_rate, inf, \
       stream
-  if (per <= 1) return launch_smem<1>(SEG_WATERFILL_ARGS);
-  if (per <= 2) return launch_smem<2>(SEG_WATERFILL_ARGS);
-  if (per <= 4) return launch_smem<4>(SEG_WATERFILL_ARGS);
-  if (per <= 8) return launch_smem<8>(SEG_WATERFILL_ARGS);
-  if (per <= 12) return launch_smem<12>(SEG_WATERFILL_ARGS);
-  return launch_smem<kMaxFlowsPerThread>(SEG_WATERFILL_ARGS);
+  if (per <= 1) return launch_smem<1, P>(SEG_WATERFILL_ARGS);
+  if (per <= 2) return launch_smem<2, P>(SEG_WATERFILL_ARGS);
+  if (per <= 4) return launch_smem<4, P>(SEG_WATERFILL_ARGS);
+  if (per <= 8) return launch_smem<8, P>(SEG_WATERFILL_ARGS);
+  if (per <= 12) return launch_smem<12, P>(SEG_WATERFILL_ARGS);
+  return launch_smem<kMaxFlowsPerThread, P>(SEG_WATERFILL_ARGS);
 #undef SEG_WATERFILL_ARGS
 }
 
-// Workspace sizes the caller allocates (element counts):
-//   ws_i: n_tiles*E + (E+1) + 4F + F + F   ints
-//   ws_f: E + E + F + F                    floats
-int seg_waterfill_launch(const int* links, const unsigned char* active,
-                         const float* cap, const float* tcp, float* rates,
-                         float* load, int* ws_i, float* ws_f, int F, int E,
-                         int n_tiles, int tile, int n_rounds, float local_rate,
-                         float inf, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int n_slots = 4 * F;
+template <int P>
+int launch_global(const int* links, const unsigned char* active,
+                  const float* cap, const float* tcp, float* rates,
+                  float* load, int* ws_i, float* ws_f, int F, int E,
+                  int n_tiles, int tile, int n_rounds, float local_rate,
+                  float inf, cudaStream_t stream) {
+  const int n_slots = P * F;
   int* hist = ws_i;
   int* ptr = hist + n_tiles * E;
   int* list = ptr + (E + 1);
@@ -828,13 +861,55 @@ int seg_waterfill_launch(const int* links, const unsigned char* active,
   if (err != cudaSuccess) return (int)err;
   err = cudaMemsetAsync(ptr, 0, sizeof(int) * (size_t)(E + 1), stream);
   if (err != cudaSuccess) return (int)err;
-  csr_count<<<n_tiles, 256, 0, stream>>>(links, active, n_slots, tile, E, hist);
+  csr_count<P><<<n_tiles, 256, 0, stream>>>(links, active, n_slots, tile, E, hist);
   csr_scan<<<1, kBlock, 0, stream>>>(hist, n_tiles, E, ptr);
-  csr_fill<<<n_tiles, kWarp, 0, stream>>>(links, active, n_slots, tile, E, hist, ptr, list);
-  waterfill<<<1, kBlock, 0, stream>>>(links, active, cap, tcp, ptr, list, rates, load,
-                                      cap_rem, share, alloc, bound, frozen, newly,
-                                      F, E, n_rounds, local_rate, inf);
+  csr_fill<P><<<n_tiles, kWarp, 0, stream>>>(links, active, n_slots, tile, E, hist, ptr,
+                                             list);
+  waterfill<P><<<1, kBlock, 0, stream>>>(links, active, cap, tcp, ptr, list, rates, load,
+                                         cap_rem, share, alloc, bound, frozen, newly,
+                                         F, E, n_rounds, local_rate, inf);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// One launch, no workspace, over paths of P = 4 or 6 link ids; needs
+// smem_bytes(F, E, P) = (2P + 5)F + 17E + 132 <= 232448 and F <= 16383,
+// and links 16-byte aligned.
+int seg_waterfill_smem_launch(const int* links, const unsigned char* active,
+                              const float* cap, const float* tcp,
+                              float* rates, float* load, int F, int E, int P,
+                              int n_rounds, float local_rate, float inf,
+                              void* stream_ptr) {
+  if (F < 0 || E < 0 || F > kSmemMaxFlows || (P != 4 && P != 6) ||
+      smem_bytes(F, E, P) > kSmemLimit)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (P == 4)
+    return launch_smem_for<4>(links, active, cap, tcp, rates, load, F, E,
+                              n_rounds, local_rate, inf, stream);
+  return launch_smem_for<6>(links, active, cap, tcp, rates, load, F, E,
+                            n_rounds, local_rate, inf, stream);
+}
+
+// Workspace sizes the caller allocates (element counts):
+//   ws_i: n_tiles*E + (E+1) + PF + F + F   ints
+//   ws_f: E + E + F + F                    floats
+int seg_waterfill_launch(const int* links, const unsigned char* active,
+                         const float* cap, const float* tcp, float* rates,
+                         float* load, int* ws_i, float* ws_f, int F, int E,
+                         int P, int n_tiles, int tile, int n_rounds,
+                         float local_rate, float inf, void* stream_ptr) {
+  if (P != 4 && P != 6) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (P == 4)
+    return launch_global<4>(links, active, cap, tcp, rates, load, ws_i, ws_f,
+                            F, E, n_tiles, tile, n_rounds, local_rate, inf,
+                            stream);
+  return launch_global<6>(links, active, cap, tcp, rates, load, ws_i, ws_f, F,
+                          E, n_tiles, tile, n_rounds, local_rate, inf, stream);
 }
 
 }  // extern "C"

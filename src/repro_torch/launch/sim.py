@@ -9,6 +9,8 @@
         --horizon 200 --chunk 64 --telescope
     PYTHONPATH=src python -m repro_torch.launch.sim --policy netaware \\
         --weights cross_leaf=0.5,row_coloc=0.3
+    PYTHONPATH=src python -m repro_torch.launch.sim --topology fat_tree \\
+        --k 16 --containers 15360 --delay-mode fw --policy netaware
 
 The flags are those of ``python -m repro.launch.sim``, the execution ones
 from ``launch.execargs`` (``--chunk`` streams the run with online
@@ -17,7 +19,10 @@ quiescent intervals and also reports online summaries), plus
 ``--device`` (default ``cuda``; without a CUDA device the run fails unless
 ``--device cpu`` is given).  Every report row records the backend and
 device it ran on and whether the delay and waterfill hot paths went
-through their CUDA kernels.  The policy x scenario x seed grid lives in
+through their CUDA kernels.  ``--topology fat_tree --k K`` runs the k-ary
+fat tree (k^3/4 hosts of the paper's classes, ``core.network.FatTreeSpec``)
+in place of the default spine-leaf fabric.  The policy x scenario x seed
+grid lives in
 ``repro_torch.launch.sweep``, weight search in ``repro_torch.launch.tune``.
 """
 from __future__ import annotations
@@ -32,6 +37,7 @@ from repro_torch.core import (ExecPlan, SimConfig, build_paper_hosts,
                               build_paper_network, get_policy, init_sim,
                               list_policies, paper_workload, run_sim,
                               scaled_hosts, summarize, to_csv, trace_workload)
+from repro_torch.core import network
 from repro_torch.core.report import json_clean
 from repro_torch.core.types import device_name, resolve_device
 from repro_torch.kernels import resolve_kernel
@@ -39,19 +45,28 @@ from repro_torch.launch.execargs import add_exec_args
 
 
 def build_once(cfg: SimConfig, bw=None, loss=None, seed=0, workload="paper",
-               n_hosts=20, device=None):
+               n_hosts=20, device=None, topology="spine_leaf", k=4):
     """Hosts + network + workload + initial state, built once and shared by
-    every policy; the bw/loss overrides ride the RunParams."""
+    every policy; the bw/loss overrides ride the RunParams.  ``topology``
+    'fat_tree' builds the k-ary fat tree and its k^3/4 hosts (``n_hosts``
+    is then ignored)."""
     if bw is not None and bw <= 0:
         raise ValueError(f"--bw must be > 0 Mbps, got {bw}")
     if loss is not None and loss < 0:
         raise ValueError(f"--loss must be >= 0, got {loss}")
     device = resolve_device(device)
-    n_leaf = max(4, n_hosts // 5)
-    hosts = (build_paper_hosts(device=device) if n_hosts == 20
-             else scaled_hosts(n_hosts, n_leaf, device=device))
-    spec, net = build_paper_network(cfg, n_hosts=n_hosts, n_leaf=n_leaf,
-                                    device=device)
+    if topology == "fat_tree":
+        spec = network.FatTreeSpec(k=k)
+        net = network.build_network(spec, device=device)
+        hosts = scaled_hosts(spec.n_hosts, spec.n_edge, device=device)
+    elif topology == "spine_leaf":
+        n_leaf = max(4, n_hosts // 5)
+        hosts = (build_paper_hosts(device=device) if n_hosts == 20
+                 else scaled_hosts(n_hosts, n_leaf, device=device))
+        spec, net = build_paper_network(cfg, n_hosts=n_hosts, n_leaf=n_leaf,
+                                        device=device)
+    else:
+        raise ValueError(f"unknown topology {topology!r}")
     gen = paper_workload if workload == "paper" else trace_workload
     sim0 = init_sim(hosts, gen(cfg, seed=seed, device=device), net)
     params = cfg.run_params(device)
@@ -118,8 +133,15 @@ def main(argv=None) -> None:
     ap.add_argument("--policy", default="all",
                     help=f"one of {list_policies()} or 'all'")
     ap.add_argument("--horizon", type=int, default=120)
-    ap.add_argument("--hosts", type=int, default=20,
-                    help="fleet size (paper Table 5 mix, scaled)")
+    ap.add_argument("--hosts", type=int, default=None,
+                    help="fleet size of the spine-leaf fabric (paper Table 5 "
+                         "mix, scaled; default 20)")
+    ap.add_argument("--topology", default="spine_leaf",
+                    choices=["spine_leaf", "fat_tree"],
+                    help="the fabric: the paper's spine-leaf (Fig 3) or the "
+                         "k-ary fat tree of Al-Fares et al. (k^3/4 hosts)")
+    ap.add_argument("--k", type=int, default=4,
+                    help="the fat tree's k (even; with --topology fat_tree)")
     ap.add_argument("--containers", type=int, default=None,
                     help="workload size (containers; jobs/tasks scale along)")
     ap.add_argument("--bw", type=float, default=None, help="link Mbps")
@@ -144,6 +166,12 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
     args = ap.parse_args(argv)
+    if args.topology == "fat_tree":
+        if args.hosts is not None and args.hosts != args.k ** 3 // 4:
+            ap.error(f"a fat tree of k = {args.k} has {args.k ** 3 // 4} "
+                     f"hosts; --hosts {args.hosts} does not fit it")
+    elif args.hosts is None:
+        args.hosts = 20
 
     wl = ({} if args.containers is None else
           dict(n_containers=args.containers, n_tasks=args.containers,
@@ -155,7 +183,8 @@ def main(argv=None) -> None:
     weights = parse_weights(args.weights)
     spec, sim0, params = build_once(cfg, bw=args.bw, loss=args.loss,
                                     seed=args.seed, workload=args.workload,
-                                    n_hosts=args.hosts, device=args.device)
+                                    n_hosts=args.hosts, device=args.device,
+                                    topology=args.topology, k=args.k)
     policies = list_policies() if args.policy == "all" else [args.policy]
     reports = []
     for p in policies:
