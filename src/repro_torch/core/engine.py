@@ -19,7 +19,8 @@ device the admit round's candidate loop, the flow allocation and the
 'fw' delay refresh go through the hand-written kernels
 (``repro_torch.kernels``).  Float segment sums
 (the requests a tick releases) add each segment's rows in row order on
-every device (``network.segment_sum``), so the card's sums equal the
+every device, and the same sort's offsets count the containers, with no
+read-back (``network.segment_sum_count``), so the card's sums equal the
 CPU's; every entry point turns on
 ``torch.use_deterministic_algorithms`` (:func:`use_deterministic`) so
 that no op of the tick takes an order that changes from run to run.
@@ -113,18 +114,20 @@ def _deploy(sim: SimState, c: torch.Tensor, h: torch.Tensor) -> SimState:
 def _free_resources(hosts: HostState, req: torch.Tensor,
                     host_idx: torch.Tensor, mask: torch.Tensor) -> HostState:
     """Release ``req[c]`` on ``host_idx[c]`` where ``mask``: per-host totals
-    by one segment sum (the unmasked rows take the pad id H; each host's
-    rows added in container order on every device,
-    ``network.segment_sum``), subtracted in one pass.  The counts are
-    integers, exact in any order."""
-    H = hosts.cap.shape[0]
-    m = mask & (host_idx >= 0)
-    seg = torch.where(m, host_idx, H).long()
-    dreq = network.segment_sum(req * m.to(F32)[:, None], seg, H)
-    dcnt = torch.zeros((H + 1,), dtype=I32, device=req.device)
-    dcnt.index_add_(0, seg, m.to(I32))
-    return hosts._replace(used=hosts.used - dreq,
-                          n_containers=hosts.n_containers - dcnt[:H])
+    and counts from one segment sum (the unmasked rows take the pad id H,
+    which the sum drops; each host's rows added in container order on
+    every device, its count the length of its segment,
+    ``network.segment_sum_count``), subtracted in one pass, with no
+    read-back.  Under a profiler the span ``free_resources``
+    (``core/trace.py``)."""
+    with trace.span("free_resources"):
+        H = hosts.cap.shape[0]
+        m = mask & (host_idx >= 0)
+        seg = torch.where(m, host_idx, H).long()
+        dreq, dcnt = network.segment_sum_count(req, seg, H)
+        return hosts._replace(
+            used=hosts.used - dreq,
+            n_containers=hosts.n_containers - dcnt.to(I32))
 
 
 # ---------------------------------------------------------------------------

@@ -429,21 +429,22 @@ def max_min_fair_rates(member: torch.Tensor, active: torch.Tensor,
     return torch.where(active, alloc, 0.0)
 
 
-def segment_sum(values: torch.Tensor, seg: torch.Tensor,
-                n_segments: int) -> torch.Tensor:
-    """Sums of the rows of ``values`` [N, ...] onto ``n_segments`` segments
-    by the ids ``seg`` [N] (int64, >= 0; rows with an id >= n_segments,
-    the pads, are dropped): each segment's rows added one after another in
-    ascending row order, from 0, on every device.  That is the order of
-    the CPU's ``index_add_`` and of the JAX package's ``segment_sum`` on
-    the CPU, so the card's sums equal the CPU's bit for bit.  (On CUDA,
+def segment_sum_count(values: torch.Tensor, seg: torch.Tensor,
+                      n_segments: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sums, counts): the sums of the rows of ``values`` [N, ...] onto
+    ``n_segments`` segments by the ids ``seg`` [N] (int64, >= 0; rows with
+    an id >= n_segments, the pads, are dropped), each segment's rows added
+    one after another in ascending row order, from 0, on every device; and
+    the number of rows in each segment (int64), exact.  That order is the
+    CPU's ``index_add_``'s and the JAX package's ``segment_sum``'s on the
+    CPU, so the card's sums equal the CPU's bit for bit.  (On CUDA,
     deterministic ``index_add_`` adds a run of 32 or more equal 1-D ids
     lane-strided and then by a warp tree: another order.)
 
     A stable sort lists each segment's rows in row order, the pads last;
     ``searchsorted`` gives the segment offsets with no host sync
-    (``bincount`` would read its maximum back); ``segment_reduce`` sums
-    each segment between its offsets.
+    (``bincount`` would read its maximum back), and their differences are
+    the counts; ``segment_reduce`` sums each segment between its offsets.
 
     The order on the card rests on behaviour that PyTorch does not
     document (``segment_reduce`` is a beta API), read on torch
@@ -462,7 +463,15 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor,
     width = int(np.prod(values.shape[1:], dtype=np.int64))
     out = torch.segment_reduce(values[order].reshape(-1, width), "sum",
                                offsets=offsets, axis=0, unsafe=True)
-    return out.reshape((n_segments,) + tuple(values.shape[1:]))
+    return (out.reshape((n_segments,) + tuple(values.shape[1:])),
+            offsets.diff())
+
+
+def segment_sum(values: torch.Tensor, seg: torch.Tensor,
+                n_segments: int) -> torch.Tensor:
+    """The sums of :func:`segment_sum_count`: each segment's rows in row
+    order on every device, the pads (ids >= ``n_segments``) dropped."""
+    return segment_sum_count(values, seg, n_segments)[0]
 
 
 def max_min_fair_rates_sparse(flow_links: torch.Tensor, active: torch.Tensor,

@@ -4,8 +4,9 @@ is active and at no other time.
 The tick's phases are ``record_function`` labels (``engine.make_tick_ext``);
 beneath them the port marks what a profiler's events cannot name: each
 device read-back (a ``host_sync`` span, its site the span's id), the
-admit round, the telescoped advance and the sweep's cells, and counts
-where the work happens (candidates tried, containers admitted).
+admit round, the release of host resources (``free_resources``), the
+telescoped advance and the sweep's cells, and counts where the work
+happens (candidates tried, containers admitted).
 
     with trace.span("admit_round"):
         with trace.host_sync("admit_count"):

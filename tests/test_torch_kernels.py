@@ -312,17 +312,17 @@ def test_cuda_segment_sum_equals_cpu():
         torch.use_deterministic_algorithms(was)
 
 
-def free_inputs(device):
-    """engine._free_resources at real size: 2000 hosts, 6000 containers
-    with paper_workload's requests, a third on one host, ~80% freed."""
+def free_inputs(device, H=2000, C=6000, freed=0.8):
+    """engine._free_resources at real size: H hosts, C containers with
+    paper_workload's requests, a third on one host, a share ``freed`` of
+    the rows in the mask."""
     from repro_torch.core import SimConfig, paper_workload, scaled_hosts
-    H, C = 2000, 6000
     req = paper_workload(SimConfig(n_jobs=C // 3, n_tasks=C, n_containers=C),
                          seed=0, device=device).req
     r = np.random.default_rng(3)
     host = r.integers(-1, H, C)
     host[r.uniform(size=C) < 1 / 3] = 7
-    mask = r.uniform(size=C) < 0.8
+    mask = r.uniform(size=C) < freed
     hosts = scaled_hosts(H, H // 5, device=device)
     hosts = hosts._replace(used=hosts.cap * 0.75, n_containers=torch.full(
         (H,), C, dtype=torch.int32, device=device))
@@ -353,17 +353,31 @@ def test_free_resources_matches_jax_at_real_size():
 
 
 @pytest.mark.cuda
-def test_cuda_free_resources_matches_cpu_at_real_size():
-    """engine._free_resources on the card equals the CPU bit for bit:
-    each host's requests added in container order on both."""
+@pytest.mark.parametrize("H,C,freed", [(2000, 6000, 0.8),
+                                       (1024, 15360, 0.05)],
+                         ids=["2000_hosts", "fat_tree"])
+def test_cuda_free_resources_matches_cpu_at_real_size(H, C, freed):
+    """engine._free_resources on the card equals the CPU bit for bit (each
+    host's requests added in container order on both, the counts exact)
+    and reads nothing back to the host: at 2000 hosts, and at the k = 16
+    fat tree's 1024 hosts and 15,360 containers with ~95% of the rows
+    outside the mask, all on the pad id.  A first call warms the card's
+    allocator and libraries; the second runs under
+    ``set_sync_debug_mode("error")``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.core import engine
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     try:
-        card = engine._free_resources(*free_inputs("cuda"))
-        cpu = engine._free_resources(*free_inputs("cpu"))
+        ins = free_inputs("cuda", H, C, freed)
+        engine._free_resources(*ins)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            card = engine._free_resources(*ins)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        cpu = engine._free_resources(*free_inputs("cpu", H, C, freed))
         assert torch.equal(card.used.cpu(), cpu.used)
         assert torch.equal(card.n_containers.cpu(), cpu.n_containers)
     finally:

@@ -207,3 +207,40 @@ def test_segment_sum_adds_in_row_order(N, n_seg, cols, seed):
     jax_sum = jax.ops.segment_sum(jnp.asarray(values), jnp.asarray(seg),
                                   num_segments=n_seg)
     np.testing.assert_array_equal(got.numpy(), np.asarray(jax_sum))
+
+
+@pytest.mark.parametrize("case,H,C", [
+    ("empty_mask", 1024, 15360), ("full_mask", 100, 1500),
+    ("host_minus_one", 100, 1500), ("hot_host", 2000, 6000),
+    ("empty_segments", 1024, 300), ("no_rows", 5, 0)])
+def test_segment_sum_count_counts_equal_index_add(case, H, C):
+    """network.segment_sum_count's counts, on the ids engine._free_resources
+    builds (a row outside the mask, or at host -1, takes the pad id H),
+    equal the rows counted by index_add_ onto H + 1 slots; its sums are
+    segment_sum's."""
+    r = np.random.default_rng(H + C)
+    host = r.integers(0, H, C)
+    mask = r.uniform(size=C) < 0.7
+    if case == "empty_mask":
+        mask[:] = False
+    elif case == "full_mask":
+        mask[:] = True
+    elif case == "host_minus_one":
+        host[r.uniform(size=C) < 0.3] = -1
+    elif case == "hot_host":                      # over a third on host 7
+        host[r.uniform(size=C) < 0.4] = 7
+    elif case == "empty_segments":                # three hosts in four empty
+        host = r.integers(0, H // 4, C) * 4
+    host, mask = torch.tensor(host), torch.tensor(mask)
+    m = mask & (host >= 0)
+    seg = torch.where(m, host, H).long()
+    values = torch.tensor(r.uniform(1, 100, (C, 3)).astype(np.float32))
+    sums, counts = tnet.segment_sum_count(values, seg, H)
+    want = torch.zeros(H + 1, dtype=torch.int64).index_add_(
+        0, seg, m.long())[:H]
+    assert counts.dtype == torch.int64 and counts.shape == (H,)
+    assert torch.equal(counts, want)
+    assert int(counts.sum()) == int(m.sum())
+    assert torch.equal(sums, tnet.segment_sum(values, seg, H))
+    if case == "empty_segments":
+        assert int((counts == 0).sum()) >= 3 * H // 4

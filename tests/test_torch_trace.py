@@ -258,8 +258,11 @@ def test_syncs_by_site_are_the_read_backs_the_path_makes(plan, monkeypatch):
         assert len(ticks) == horizon
         assert set(by_site) <= {"admit_count", "mig_enabled", "mig_step",
                                 "summary_copy"}
+    # five releases of host resources a full tick, none in a cheap one
+    frees = named(snap, "free_resources")
+    assert len(frees) == 5 * len(ticks)
     for s in snap.spans:
-        if s.name == "admit_round":
+        if s.name in ("admit_round", "free_resources"):
             assert snap.spans[s.parent].name == "tick"
         if s.name == "host_sync" and s.id == "admit_count":
             assert snap.spans[s.parent].name == "admit_round"
