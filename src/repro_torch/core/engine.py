@@ -17,7 +17,8 @@ read it back too: ``types.take``); each read-back is a ``host_sync``
 span of ``core/trace.py``, recorded while a profiler runs.  On a CUDA
 device the admit round's candidate loop, the flow allocation and the
 'fw' delay refresh go through the hand-written kernels
-(``repro_torch.kernels``).  Float segment sums
+(``repro_torch.kernels``; :func:`make_tick_ext` asks
+``kernels.kernel_route`` for each route once).  Float segment sums
 (the requests a tick releases) add each segment's rows in row order on
 every device, and the same sort's offsets count the containers, with no
 read-back (``network.segment_sum_count``), so the card's sums equal the
@@ -52,7 +53,8 @@ from repro_torch.core.types import (
     ContainerState, ExecPlan, HostState, NetState, PolicyParams, RunParams,
     SchedState, SimState, SummaryAcc, TickMetrics, take,
 )
-from repro_torch.kernels import resolve_kernel
+from repro_torch.kernels import (fw_minplus, kernel_route, place_round,
+                                 seg_waterfill)
 
 I32 = torch.int32
 F32 = torch.float32
@@ -237,13 +239,14 @@ def _place_batched(sim: SimState, cfg: SimConfig, params: RunParams,
     with trace.host_sync("admit_count"):
         n_valid = int(valid.sum())
     trace.count("candidates", n_valid)
-    from repro_torch.kernels.place_round import place_round, place_round_ref
+    # looked up in the kernel's package on every round
     if cfg.soft_placement:
-        rnd = place_round_ref(sim, cfg, params, policy, cand, valid, req_k,
-                              pcarry, n_valid, soft=True)
+        rnd = place_round.place_round_ref(sim, cfg, params, policy, cand,
+                                          valid, req_k, pcarry, n_valid,
+                                          soft=True)
     else:
-        rnd = place_round(sim, cfg, params, policy, cand, valid, req_k,
-                          pcarry, n_valid)
+        rnd = place_round.place_round(sim, cfg, params, policy, cand, valid,
+                                      req_k, pcarry, n_valid)
     chosen = rnd.chosen
 
     ok = chosen >= 0
@@ -405,9 +408,11 @@ def pick_comm_peers_dense(ct: ContainerState) -> torch.Tensor:
                        torch.arange(C, device=dev)).to(I32)
 
 
-def phase_flows(sim: SimState, cfg: SimConfig, use_kernel: bool = False):
+def phase_flows(sim: SimState, cfg: SimConfig,
+                allocate=network.waterfill_sparse):
     """This tick's flow rates (paper: iperf transfers).  Flow f in [0, C) is
-    container f's communication flow, f in [C, 2C) its migration flow.
+    container f's communication flow, f in [C, 2C) its migration flow;
+    ``allocate`` is the sparse allocation ``network.flow_rates`` calls.
     Returns (sim with the new link utilization, comm rates, migration
     rates, active mask [2C], rates [2C])."""
     ct = sim.containers
@@ -421,7 +426,7 @@ def phase_flows(sim: SimState, cfg: SimConfig, use_kernel: bool = False):
     rates, util = network.flow_rates(sim.net, src, dst, active,
                                      n_rounds=cfg.waterfill_rounds,
                                      sparse=cfg.sparse_flows,
-                                     use_kernel=use_kernel)
+                                     allocate=allocate)
     sim = sim._replace(net=sim.net._replace(link_util=util))
     return sim, rates[:C], rates[C:], active, rates
 
@@ -555,15 +560,17 @@ class TickInfo(NamedTuple):
 
 def make_refresh_fn(cfg: SimConfig, policy: PolicyParams, params: RunParams,
                     n_hosts: int, n_nodes: int):
-    """The periodic delay-matrix rebuild as a ``net -> net`` function."""
-    device = policy.weights.device
-    use_fw_kernel = (cfg.delay_mode == "fw"
-                     and resolve_kernel(cfg.delay_kernel, device))
+    """The periodic delay-matrix rebuild as a ``net -> net`` function; its
+    'fw' shortest paths are the route ``kernels.kernel_route`` gives
+    ``cfg.delay_kernel`` on the policy's device."""
+    apsp = (kernel_route(fw_minplus, cfg.delay_kernel,
+                         policy.weights.device)
+            if cfg.delay_mode == "fw" else network.floyd_warshall_ref)
 
     def refresh(net: NetState) -> NetState:
         return network.update_delay_matrix(
             net, n_hosts, n_nodes, mode=cfg.delay_mode,
-            use_kernel=use_fw_kernel, q_coef=params.queue_coef,
+            shortest_paths=apsp, q_coef=params.queue_coef,
             util_weight=policy.weights[W_UTIL],
             cross_leaf_ms=policy.weights[W_CROSS_LEAF])
 
@@ -573,10 +580,12 @@ def make_refresh_fn(cfg: SimConfig, policy: PolicyParams, params: RunParams,
 def make_tick_ext(cfg: SimConfig, policy: PolicyParams, params: RunParams,
                   n_hosts: int, n_nodes: int):
     """Build the tick ``(sim, tt) -> (sim', metrics, TickInfo)``; ``tt`` is
-    the tick index (a Python int, equal to ``sim.t``)."""
-    device = policy.weights.device
-    use_wf_kernel = (cfg.sparse_flows
-                     and resolve_kernel(cfg.waterfill_kernel, device))
+    the tick index (a Python int, equal to ``sim.t``).  The sparse flow
+    allocation is the route ``kernels.kernel_route`` gives
+    ``cfg.waterfill_kernel`` on the policy's device."""
+    allocate = (kernel_route(seg_waterfill, cfg.waterfill_kernel,
+                             policy.weights.device)
+                if cfg.sparse_flows else network.waterfill_sparse)
     refresh = make_refresh_fn(cfg, policy, params, n_hosts, n_nodes)
 
     def tick_ext(sim: SimState, tt: int):
@@ -594,7 +603,7 @@ def make_tick_ext(cfg: SimConfig, policy: PolicyParams, params: RunParams,
             mid = sim.containers
             with record_function("phase_flows"):
                 sim, comm_rates, mig_rates, flow_active, all_rates = \
-                    phase_flows(sim, cfg, use_kernel=use_wf_kernel)
+                    phase_flows(sim, cfg, allocate)
             with record_function("phase_progress"):
                 sim = phase_communicate(sim, cfg, comm_rates)
                 sim = phase_migrate(sim, cfg, mig_rates)
@@ -987,9 +996,9 @@ def run_sim(sim0: SimState, cfg: SimConfig, policy: PolicyParams,
     cfg = plan.apply_to_config(cfg)
     device = sim0.t.device
     params = cfg.run_params(device) if params is None else params
-    if plan.chunk is not None or plan.telescope:
+    chunk = plan.stream_chunk(horizon)
+    if chunk is not None:
         return run_sim_chunked(sim0, cfg, policy, n_hosts, n_nodes, horizon,
-                               plan.chunk or horizon, params=params,
-                               telescope=plan.telescope)
+                               chunk, params=params, telescope=plan.telescope)
     use_deterministic(device)
     return simulate(sim0, cfg, policy, n_hosts, n_nodes, horizon, params)

@@ -4,11 +4,16 @@ Counterpart of ``repro.core.network``.  Mininet's emulated fabric is an
 analytic flow-level model:
 
 * ``ping``-refreshed delay matrix -> the ECMP path sum, or min-plus
-  Floyd-Warshall over the congestion-adjusted link graph (the
-  ``fw_minplus`` CUDA kernel on a card, :func:`floyd_warshall_ref` here);
+  Floyd-Warshall over the congestion-adjusted link graph
+  (:func:`floyd_warshall_ref`);
 * ``iperf`` transfers -> per-flow rate = min(max-min-fair share by
-  progressive filling, Mathis TCP bound MSS / (RTT * sqrt(p))); on a card
-  the whole allocation is the ``seg_waterfill`` CUDA kernel.
+  progressive filling, Mathis TCP bound MSS / (RTT * sqrt(p)))
+  (:func:`waterfill_sparse`).
+
+This module launches no kernel and imports none: the engine hands
+:func:`update_delay_matrix` and :func:`flow_rates` the callable to run in
+place of each plain function, on a card the ``fw_minplus`` and
+``seg_waterfill`` CUDA kernels (``kernels.kernel_route``).
 
 Every per-link reduction is a :func:`segment_sum` onto E segments in
 slot order (id E marks a pad slot, dropped), the order ``jax.ops.segment_sum``
@@ -341,14 +346,16 @@ def floyd_warshall_ref(A: torch.Tensor) -> torch.Tensor:
 
 
 def update_delay_matrix(net: NetState, n_hosts: int, n_nodes: int,
-                        mode: str = "path", use_kernel: bool = False,
+                        mode: str = "path", shortest_paths=floyd_warshall_ref,
                         q_coef=0.5, util_weight=DEFAULT_UTIL_WEIGHT,
                         cross_leaf_ms=DEFAULT_CROSS_LEAF_MS) -> NetState:
     """Refresh the paper's delay_matrix (and comm_cost) from congestion.
 
     mode='path' — sum link delays along the fixed ECMP path (O(H^2)).
-    mode='fw'   — full APSP over the node graph (the SDN-controller view),
-                  through the ``fw_minplus`` kernel when ``use_kernel``.
+    mode='fw'   — full APSP over the node graph (the SDN-controller view)
+                  by ``shortest_paths`` (A [n, n] -> D [n, n]): the plain
+                  :func:`floyd_warshall_ref`, or the ``fw_minplus`` kernel
+                  the engine routes here on a card.
 
     Under a profiler the shortest paths (the adjacency and the APSP, or
     the path sum) are the span ``apsp`` and the comm-cost rebuild the span
@@ -360,12 +367,7 @@ def update_delay_matrix(net: NetState, n_hosts: int, n_nodes: int,
             D = path_delay_matrix(d_link, net.path_links)
         elif mode == "fw":
             A = adjacency_from_links(net, d_link, n_nodes)
-            if use_kernel:
-                from repro_torch.kernels.fw_minplus import floyd_warshall
-                D_full = floyd_warshall(A)
-            else:
-                D_full = floyd_warshall_ref(A)
-            D = D_full[:n_hosts, :n_hosts].contiguous()
+            D = shortest_paths(A)[:n_hosts, :n_hosts].contiguous()
         else:
             raise ValueError(
                 f"delay mode must be 'path' or 'fw', got {mode!r}")
@@ -513,6 +515,25 @@ def max_min_fair_rates_sparse(flow_links: torch.Tensor, active: torch.Tensor,
     return torch.where(active, alloc, 0.0)
 
 
+def waterfill_sparse(links: torch.Tensor, active: torch.Tensor,
+                     link_bw_kbps: torch.Tensor, tcp_cap: torch.Tensor,
+                     n_rounds: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rates [F], load [E]) from [F, P] link ids (-1 pad), any P: the
+    sparse max-min-fair allocation (:func:`max_min_fair_rates_sparse`),
+    its minimum with the Mathis ceiling ``tcp_cap`` [F], and each link's
+    load, the rates summed in slot order (:func:`segment_sum`).  The plain
+    version of the ``seg_waterfill`` kernel, which fuses the three."""
+    E = link_bw_kbps.shape[0]
+    active = active.to(torch.bool)
+    fair = max_min_fair_rates_sparse(links, active, link_bw_kbps,
+                                     n_rounds=n_rounds)
+    rates = torch.minimum(fair, tcp_cap) * active
+    valid = links >= 0
+    seg = torch.where(valid, links, E).reshape(-1).long()
+    w = (rates[:, None] * valid.to(F32)).reshape(-1)
+    return rates, segment_sum(w, seg, E)
+
+
 def mathis_cap(delay_matrix: torch.Tensor, link_loss: torch.Tensor,
                member: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                mss_kb: float = 1.46, c_mathis: float = 1.22) -> torch.Tensor:
@@ -567,14 +588,15 @@ def flows_by_length(slots: list) -> dict:
 
 def flow_rates(net: NetState, src: torch.Tensor, dst: torch.Tensor,
                active: torch.Tensor, n_rounds: int = 8, sparse: bool = True,
-               use_kernel: bool = False
+               allocate=waterfill_sparse
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Allocate KB/s to each (src_host -> dst_host) flow; also link util.
 
     ``sparse`` selects the segment-based engine (default); ``sparse=False``
-    runs the dense [F, E] membership oracle.  ``use_kernel`` routes the
-    sparse allocation through the ``seg_waterfill`` wrapper (all rounds +
-    Mathis min + link load; on a CUDA tensor, the CUDA kernel).  Returns
+    runs the dense [F, E] membership oracle.  The sparse engine's
+    allocation (all rounds + Mathis min + link load) is ``allocate``, with
+    :func:`waterfill_sparse`'s arguments and results: that plain version,
+    or the ``seg_waterfill`` kernel the engine routes here on a card.  Returns
     (rates [F], util [E]).  Under a profiler, on a fabric whose paths run
     past four links (the fat tree), the sparse engine counts the active
     flows by path length on the device (``flows_<L>link``, read back once,
@@ -593,14 +615,7 @@ def flow_rates(net: NetState, src: torch.Tensor, dst: torch.Tensor,
             trace.count_device("flow_links", lambda: _valid_slots(links),
                                flows_by_length)
         tcp = mathis_cap_sparse(net.delay_matrix, net.path_loss, src_c, dst_c)
-        if use_kernel:
-            from repro_torch.kernels.seg_waterfill import seg_waterfill
-            rates, load = seg_waterfill(links, active, bw_kbps, tcp,
-                                        n_rounds=n_rounds)
-        else:
-            from repro_torch.kernels.seg_waterfill import seg_waterfill_ref
-            rates, load = seg_waterfill_ref(links, active, bw_kbps, tcp,
-                                            n_rounds=n_rounds)
+        rates, load = allocate(links, active, bw_kbps, tcp, n_rounds=n_rounds)
     else:
         member = path_membership(net.path_links, src_c, dst_c, E)
         member = member & active[:, None]

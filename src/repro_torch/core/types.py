@@ -317,6 +317,14 @@ class ExecPlan:
                 raise ValueError(f"ExecPlan.{name} must be one of "
                                  f"{KERNEL_FLAGS} or None, got {v!r}")
 
+    def stream_chunk(self, horizon: int) -> int | None:
+        """The chunk a run of ``horizon`` ticks streams in, or None where
+        it stacks its per-tick metrics: ``chunk``, or with ``telescope``
+        and no ``chunk`` the whole horizon."""
+        if self.chunk is not None or self.telescope:
+            return self.chunk or horizon
+        return None
+
     def apply_to_config(self, cfg):
         """Fold the kernel selectors into the ``SimConfig``."""
         updates = {k: v for k, v in (("delay_kernel", self.delay_kernel),

@@ -16,6 +16,10 @@ import torch
 
 KERNEL_FLAGS = ("auto", "on", "off")
 
+# a tick's kernel package -> (its wrapper, its plain version) by name
+ROUTES = {"seg_waterfill": ("seg_waterfill", "seg_waterfill_ref"),
+          "fw_minplus": ("floyd_warshall", "floyd_warshall_ref")}
+
 # wrapper name -> launches since the last reset_launch_counts()
 LAUNCHES: dict[str, int] = {"seg_waterfill": 0, "fw_minplus": 0,
                              "flash_attention": 0, "ssd_scan": 0,
@@ -64,6 +68,15 @@ def resolve_kernel(flag: str, device) -> bool:
     if flag == "off":
         return False
     return on_cuda
+
+
+def kernel_route(kernel, flag: str, device):
+    """The callable a tick calls for ``kernel`` (the kernel's package, one
+    of ``ROUTES``) under the selector ``flag`` on ``device``: its wrapper
+    where :func:`resolve_kernel` picks the kernel, else its plain version.
+    Raises as :func:`resolve_kernel` does."""
+    wrapper, plain = ROUTES[kernel.__name__.rsplit(".", 1)[-1]]
+    return getattr(kernel, wrapper if resolve_kernel(flag, device) else plain)
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype, shape) -> None:

@@ -49,18 +49,11 @@ def variant(F: int, E: int, P: int = 4) -> str:
 def seg_waterfill_ref(links: torch.Tensor, active: torch.Tensor,
                       link_bw_kbps: torch.Tensor, tcp_cap: torch.Tensor,
                       n_rounds: int = 8):
-    """(rates [F], load [E]) from [F, P] link ids, any P — the unfused op
-    chain ``network.flow_rates(sparse=True)`` runs without the kernel: the
-    sparse max-min-fair allocation, the Mathis min and the load."""
-    E = link_bw_kbps.shape[0]
-    active = active.to(torch.bool)
-    fair = network.max_min_fair_rates_sparse(links, active, link_bw_kbps,
-                                             n_rounds=n_rounds)
-    rates = torch.minimum(fair, tcp_cap) * active
-    valid = links >= 0
-    seg = torch.where(valid, links, E).reshape(-1).long()
-    w = (rates[:, None] * valid.to(torch.float32)).reshape(-1)
-    return rates, network.segment_sum(w, seg, E)
+    """The plain version, ``network.waterfill_sparse``: (rates [F], load
+    [E]) from [F, P] link ids, any P — the sparse max-min-fair allocation,
+    the Mathis min and the load, unfused."""
+    return network.waterfill_sparse(links, active, link_bw_kbps, tcp_cap,
+                                    n_rounds=n_rounds)
 
 
 def _lib(name: str):

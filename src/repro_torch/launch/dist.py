@@ -95,11 +95,14 @@ _SLAB_RE = re.compile(r"slab_(\d{8})$")
 _META_RE = re.compile(r"worker_(\d+)\.json$")
 
 
-def _resolve_dist_plan(plan: ExecPlan | None,
-                       cfg: SimConfig) -> tuple[ExecPlan, SimConfig]:
-    """The fabric's plan: no plan at all spawns the historical 2 workers
-    (``ExecPlan.procs`` defaults to 1, which is right for the in-process
-    entry points); the kernel selectors fold into ``cfg``."""
+def _resolve_dist_plan(plan: ExecPlan | None, cfg: SimConfig,
+                       fill_chunk: bool = True
+                       ) -> tuple[ExecPlan, SimConfig]:
+    """The fabric's plan and config, and its checks: no plan at all spawns
+    the historical 2 workers (``ExecPlan.procs`` defaults to 1, which is
+    right for the in-process entry points); ``telescope`` raises; a
+    missing ``chunk`` becomes the largest bound-safe one with
+    ``fill_chunk``, else raises; the kernel selectors fold into ``cfg``."""
     if plan is None:
         plan = ExecPlan(procs=2)
     if plan.telescope:
@@ -110,7 +113,15 @@ def _resolve_dist_plan(plan: ExecPlan | None,
             "telescope is not threaded through the multi-process fabric "
             "yet — drop procs (the in-process sweep telescopes) or drop "
             "telescope")
-    return plan, plan.apply_to_config(cfg)
+    cfg = plan.apply_to_config(cfg)
+    if plan.chunk is None:
+        if not fill_chunk:
+            raise ValueError("the multi-process fabric requires chunk (it "
+                             "streams slabs; there is no stacked "
+                             "multi-process path)")
+        plan = dataclasses.replace(plan, chunk=min(
+            cfg.horizon, stats.max_chunk_ticks(cfg.n_containers)))
+    return plan, cfg
 
 
 def _slab_cells(B: int, slab: int | None, n_dev: int) -> int:
@@ -693,10 +704,7 @@ def make_dist_fn(cfg: SimConfig, scenarios: Sequence[ScenarioSpec],
     the grid from it, so the call only checks that the caller's batch
     matches (``launch.tune`` rides this for ``--procs``).  ``fn.last_run``
     is the last call's ``DistRun``, its worker metas included."""
-    plan, cfg = _resolve_dist_plan(plan, cfg)
-    if plan.chunk is None:
-        raise ValueError("the dist fabric streams slabs: the plan needs a "
-                         "chunk (there is no stacked multi-process path)")
+    plan, cfg = _resolve_dist_plan(plan, cfg, fill_chunk=False)
     spec = GridSpec.build(cfg=cfg, scenarios=scenarios, seeds=seeds,
                           policies=policies, weights=weights,
                           n_hosts=n_hosts, n_spine=n_spine, n_leaf=n_leaf,
@@ -744,12 +752,9 @@ def run_dist_sweep(policies: Sequence[str] | None = None,
     scenarios = list(scenarios if scenarios is not None
                      else default_scenarios())
     plan, cfg = _resolve_dist_plan(plan, cfg or SimConfig())
-    chunk = plan.chunk
-    if chunk is None:
-        chunk = min(cfg.horizon, stats.max_chunk_ticks(cfg.n_containers))
     spec = GridSpec.build(cfg=cfg, scenarios=scenarios, seeds=seeds,
                           policies=policies, n_hosts=n_hosts,
-                          n_spine=n_spine, n_leaf=n_leaf, chunk=chunk,
+                          n_spine=n_spine, n_leaf=n_leaf, chunk=plan.chunk,
                           slab=plan.slab, overlap=plan.overlap,
                           devices_per_proc=plan.devices_per_proc)
     run = run_spec(spec, num_procs=plan.procs, out_dir=out_dir,

@@ -28,6 +28,7 @@ grid lives in
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -94,15 +95,18 @@ def parse_weights(arg: str | None) -> dict[str, float] | None:
 
 def run_one(policy_name: str, cfg: SimConfig, spec, sim0, params, csv=None,
             weights=None, plan: ExecPlan | None = None):
+    """Run one policy and return its report row.  The plan's kernel
+    selectors fold into ``cfg`` here, once: the row reports them, and
+    ``run_sim`` gets the rest of the plan."""
     plan = ExecPlan() if plan is None else plan
-    if csv and plan.chunk is not None:
-        raise ValueError("--csv needs the stacked per-tick series; "
-                         "drop --chunk to export one")
-    if csv and plan.telescope:
-        raise ValueError("--csv needs the stacked per-tick series; "
-                         "telescoping skips quiescent ticks and keeps only "
-                         "online summaries — drop --telescope to export one")
+    if csv and plan.stream_chunk(cfg.horizon) is not None:
+        raise ValueError(
+            "--csv needs the stacked per-tick series; "
+            + ("drop --chunk to export one" if plan.chunk is not None else
+               "telescoping skips quiescent ticks and keeps only online "
+               "summaries — drop --telescope to export one"))
     cfg = plan.apply_to_config(cfg)
+    plan = dataclasses.replace(plan, delay_kernel=None, waterfill_kernel=None)
     device = sim0.t.device
     t0 = time.time()
     final, metrics = run_sim(sim0, cfg,

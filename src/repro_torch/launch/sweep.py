@@ -35,6 +35,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import itertools
 import json
 import time
 from typing import Any, Sequence
@@ -45,9 +47,8 @@ import torch
 from repro_torch.core import (SimConfig, get_policy, list_policies,
                               sweep_summaries, sweep_table)
 from repro_torch.core import stats, trace
-from repro_torch.core.engine import (run_sim_chunked, simulate,
-                                     simulate_chunk, stream_chunks,
-                                     use_deterministic)
+from repro_torch.core.engine import (run_sim, simulate, simulate_chunk,
+                                     stream_chunks, use_deterministic)
 from repro_torch.core.report import json_clean
 from repro_torch.core.scenario import (ScenarioSpec, build_scenarios,
                                        default_scenarios, stack_tree)
@@ -126,13 +127,14 @@ def _grid_shape(sims: SimState, pols: PolicyParams):
 
 
 def _cell(sims: SimState, pols: PolicyParams, rps: RunParams, b: int,
-          S: int, N: int):
-    """The inputs of flattened cell ``b``: (SimState, PolicyParams,
-    RunParams), views of the stacked grid."""
+          S: int, N: int, device):
+    """The inputs of flattened cell ``b`` on ``device``: (SimState,
+    PolicyParams, RunParams), views of the stacked grid where it is
+    there already."""
     p, s, n = b // (S * N), (b // N) % S, b % N
-    return (tree_map(lambda x: x[s, n], sims),
-            PolicyParams(weights=pols.weights[p]),
-            tree_map(lambda x: x[s], rps))
+    return _on(device, (tree_map(lambda x: x[s, n], sims),
+                        PolicyParams(weights=pols.weights[p]),
+                        tree_map(lambda x: x[s], rps)))
 
 
 def _shards(s0: int, n_cells: int, real: int, k: int) -> list:
@@ -153,13 +155,27 @@ def _on(device, tree):
     return tree_map(lambda x: x.to(device), tree)
 
 
-def _targets(devs, sims) -> tuple:
-    """The devices the cells run on: ``devs``, or the grid's own device;
-    each runs in deterministic mode."""
+def _grid_cells(sims: SimState, pols: PolicyParams, rps: RunParams, devs,
+                starts=(0,), width: int | None = None):
+    """The grid's cells in the order they run, as ``(b, device, inputs)``,
+    ``inputs()`` the cell's ``(sim, pol, rp)`` on its device: for each
+    start ``s0`` the block of ``width`` cells from it (default the whole
+    grid), cut into contiguous shards, shard ``j`` on ``devs[j]`` (or the
+    grid's own device without ``devs``; module docstring).  ``starts`` is
+    read lazily.  Before the first cell, checks that every cell shares the
+    topology and turns on deterministic mode on each device."""
+    _check_topology_uniform(sims)
     targets = devs or (sims.t.device,)
     for d in targets:
         use_deterministic(d)
-    return targets
+    P, S, N, B = _grid_shape(sims, pols)
+    width = B if width is None else width
+    for s0 in starts:
+        shards = _shards(s0, width, min(width, B - s0), len(targets))
+        for dev, cells in zip(targets, shards):
+            for b in cells:
+                yield b, dev, functools.partial(_cell, sims, pols, rps, b,
+                                                S, N, dev)
 
 
 def _grad_of(value: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -243,20 +259,16 @@ def make_grad_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,
     cell_fn = stacked_cell if chunk is None else chunked_cell
 
     def fn(sims, pols, rps):
-        _check_topology_uniform(sims)
-        targets = _targets(devs, sims)
-        device = targets[0]
+        home = devs[0] if devs else sims.t.device
         P, S, N, B = _grid_shape(sims, pols)
         vals, grads = [], []
         with torch.enable_grad():
-            for dev, cells in zip(targets,
-                                  _shards(0, B, B, n_dev)):
-                for b in cells:
-                    sim, pol, rp = _on(dev, _cell(sims, pols, rps, b, S, N))
-                    w = pol.weights.detach().clone().requires_grad_()
-                    v, g = cell_fn(sim, w, rp)
-                    vals.append(v.to(device, torch.float64))
-                    grads.append(g.to(device, torch.float64))
+            for _, _, cell in _grid_cells(sims, pols, rps, devs):
+                sim, pol, rp = cell()
+                w = pol.weights.detach().clone().requires_grad_()
+                v, g = cell_fn(sim, w, rp)
+                vals.append(v.to(home, torch.float64))
+                grads.append(g.to(home, torch.float64))
         # the mean over a policy's cells, in f64 (the chunked path's
         # totals are f64 already)
         mean = lambda xs: (torch.stack(xs).reshape((P, S * N)
@@ -280,18 +292,14 @@ def make_sweep_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,
     n_dev = 1 if devs is None else len(devs)
 
     def fn(sims, pols, rps):
-        _check_topology_uniform(sims)
-        targets = _targets(devs, sims)
+        home = devs[0] if devs else sims.t.device
         P, S, N, B = _grid_shape(sims, pols)
         finals, metrics = [], []
-        for dev, cells in zip(targets,
-                              _shards(0, B, B, n_dev)):
-            for b in cells:
-                sim, pol, rp = _on(dev, _cell(sims, pols, rps, b, S, N))
-                f, m = simulate(sim, cfg, pol, n_hosts, n_nodes, horizon,
-                                rp)
-                finals.append(_on(targets[0], f))
-                metrics.append(_on(targets[0], m))
+        for _, _, cell in _grid_cells(sims, pols, rps, devs):
+            sim, pol, rp = cell()
+            f, m = simulate(sim, cfg, pol, n_hosts, n_nodes, horizon, rp)
+            finals.append(_on(home, f))
+            metrics.append(_on(home, m))
         grid = lambda x: x.reshape((P, S, N) + tuple(x.shape[1:]))
         return (tree_map(grid, stack_tree(finals)),
                 tree_map(grid, stack_tree(metrics)))
@@ -344,7 +352,8 @@ def make_stream_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,
     may be short; ``fn.slab_cells(B)`` is ``Bs``, ``min(slab, B)`` padded
     to a multiple of the device count, so the slab starts are the JAX
     package's.  With ``devices`` each slab is cut over them (module
-    docstring) and comes to the host in one copy a shard.
+    docstring), and the cells of each device come to the host in one
+    copy.
     """
     stats.check_chunk(chunk, cfg.n_containers)
     devs = resolve_devices(devices)
@@ -361,19 +370,16 @@ def make_stream_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,
         return sim, accs
 
     def iter_slabs(sims, pols, rps, slab_starts):
-        _check_topology_uniform(sims)
-        targets = _targets(devs, sims)
         P, S, N, B = _grid_shape(sims, pols)
         Bs = slab_cells(B)
         statics = _static_indices(sims)
         n_fields = len(SummaryAcc._fields)
 
-        def run_shard(dev, cells):
+        def run_shard(cells):
             finals, accs = [], []
-            for b in cells:
+            for b, _, cell in cells:
                 with trace.span("sweep_cell", b):
-                    cell = _on(dev, _cell(sims, pols, rps, b, S, N))
-                    f, a = run_cell(*cell)
+                    f, a = run_cell(*cell())
                 finals.append([x for _, x in tree_leaves_with_path(f)])
                 accs.append(a)
             with trace.span("slab_copy_fold"):
@@ -389,9 +395,14 @@ def make_stream_fn(cfg: SimConfig, n_hosts: int, n_nodes: int, horizon: int,
                         slab_sum, SummaryAcc(*host[c0:c0 + n_fields]))
             return host[:len(leaves)], slab_sum
 
-        for s0 in slab_starts:
-            parts = [run_shard(dev, cells) for dev, cells in zip(
-                targets, _shards(s0, Bs, min(Bs, B - s0), n_dev)) if cells]
+        cells = _grid_cells(sims, pols, rps, devs, slab_starts, Bs)
+        for first in cells:     # a slab's first cell is its start
+            s0 = first[0]
+            slab = itertools.chain([first], itertools.islice(
+                cells, min(Bs, B - s0) - 1))
+            # the cells on one device come to the host together
+            parts = [run_shard(shard) for _, shard in
+                     itertools.groupby(slab, key=lambda c: c[1])]
             if len(parts) == 1:
                 yield (s0,) + parts[0]
                 continue
@@ -457,12 +468,30 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def make_grid_fn(cfg: SimConfig, n_hosts: int, n_nodes: int,
+                 plan: ExecPlan):
+    """The in-process grid runner ``plan`` asks for, over ``cfg.horizon``
+    ticks with the plan's kernel selectors folded into ``cfg``:
+    :func:`make_stream_fn` at ``plan.stream_chunk``'s chunk (its ``slab``,
+    ``devices`` and ``telescope``), else :func:`make_sweep_fn` over
+    ``plan.devices``."""
+    cfg = plan.apply_to_config(cfg)
+    chunk = plan.stream_chunk(cfg.horizon)
+    if chunk is None:
+        return make_sweep_fn(cfg, n_hosts, n_nodes, cfg.horizon,
+                             devices=plan.devices)
+    return make_stream_fn(cfg, n_hosts, n_nodes, cfg.horizon, chunk=chunk,
+                          slab=plan.slab, devices=plan.devices,
+                          overlap=plan.overlap, telescope=plan.telescope)
+
+
 def run_sweep(policies: Sequence[str] | None = None,
               scenarios: Sequence[ScenarioSpec] | None = None,
               seeds: Sequence[int] = (0,), cfg: SimConfig | None = None,
               n_hosts: int = 20, n_spine: int = 2, n_leaf: int = 4,
               plan: ExecPlan | None = None, device=None) -> SweepResult:
-    """Build the grid on ``device`` (default ``cuda``) and run it.
+    """Build the grid on ``device`` (default ``cuda``) and run it through
+    :func:`make_grid_fn`.
 
     ``plan.chunk`` switches to the streamed sweep (``make_stream_fn``):
     [P, S, N] summaries without [P, S, N, T] metrics, the grid gathered
@@ -472,36 +501,28 @@ def run_sweep(policies: Sequence[str] | None = None,
     cells over several devices (module docstring); ``plan.procs`` is the
     multi-process fabric's (``launch.dist.run_dist_sweep``), as in the
     JAX package this in-process sweep does not read it.  The plan's
-    kernel selectors fold into ``cfg``."""
+    kernel selectors fold into ``cfg`` (:func:`make_grid_fn`)."""
     policies = list(policies if policies is not None else list_policies())
     scenarios = list(scenarios if scenarios is not None
                      else default_scenarios())
     plan = ExecPlan() if plan is None else plan
-    cfg = plan.apply_to_config(cfg or SimConfig())
+    cfg = cfg or SimConfig()
     device = resolve_device(device)
     net_spec, sims, rps = build_scenarios(scenarios, cfg, n_hosts=n_hosts,
                                           n_spine=n_spine, n_leaf=n_leaf,
                                           seeds=seeds, device=device)
     pol = stack_policies(policies, device=device)
-    common = dict(policies=policies, scenarios=scenarios, seeds=tuple(seeds))
-    if plan.chunk is not None or plan.telescope:
-        fn = make_stream_fn(cfg, net_spec.n_hosts, net_spec.n_nodes,
-                            cfg.horizon, chunk=plan.chunk or cfg.horizon,
-                            slab=plan.slab, devices=plan.devices,
-                            overlap=plan.overlap, telescope=plan.telescope)
-        t0 = time.time()
-        finals, summary = fn(sims, pol, rps)
-        return SweepResult(finals=finals, metrics=None, summary=summary,
-                           wall_s=round(time.time() - t0, 2),
-                           n_devices=fn.n_devices, **common)
-    fn = make_sweep_fn(cfg, net_spec.n_hosts, net_spec.n_nodes, cfg.horizon,
-                       devices=plan.devices)
+    fn = make_grid_fn(cfg, net_spec.n_hosts, net_spec.n_nodes, plan)
     t0 = time.time()
-    finals, metrics = fn(sims, pol, rps)
+    finals, out = fn(sims, pol, rps)
     _synchronize(device)
-    return SweepResult(finals=finals, metrics=metrics,
+    streamed = isinstance(out, OnlineSummary)
+    return SweepResult(policies=policies, scenarios=scenarios,
+                       seeds=tuple(seeds), finals=finals,
+                       metrics=None if streamed else out,
+                       summary=out if streamed else None,
                        wall_s=round(time.time() - t0, 2),
-                       n_devices=fn.n_devices, **common)
+                       n_devices=fn.n_devices)
 
 
 def run_sim_vmapped(sims: SimState, cfg: SimConfig, policy: PolicyParams,
@@ -512,22 +533,16 @@ def run_sim_vmapped(sims: SimState, cfg: SimConfig, policy: PolicyParams,
     leaf), the degenerate 1 x 1 x N sweep: (finals [N, ...], metrics
     [N, T]), or with ``chunk`` or ``telescope`` (finals [N, ...], [N]
     ``OnlineSummary``; telescoped, the whole horizon one chunk without
-    ``chunk``).  Each seed is its standalone run."""
-    device = sims.t.device
-    params = cfg.run_params(device) if params is None else params
-    cells = [tree_map(lambda x: x[i], sims) for i in range(sims.t.shape[0])]
-    if chunk is None and not telescope:
-        use_deterministic(device)
-        outs = [simulate(c, cfg, policy, n_hosts, n_nodes, horizon, params)
-                for c in cells]
-        return (stack_tree([f for f, _ in outs]),
-                stack_tree([m for _, m in outs]))
-    outs = [run_sim_chunked(c, cfg, policy, n_hosts, n_nodes, horizon,
-                            chunk or horizon, params=params,
-                            telescope=telescope) for c in cells]
-    return (stack_tree([f for f, _ in outs]),
-            OnlineSummary(*(np.stack(xs)
-                            for xs in zip(*(o for _, o in outs)))))
+    ``chunk``).  Each seed is its standalone ``run_sim``."""
+    plan = ExecPlan(chunk=chunk, telescope=telescope)
+    outs = [run_sim(tree_map(lambda x: x[i], sims), cfg, policy, n_hosts,
+                    n_nodes, horizon, params, plan)
+            for i in range(sims.t.shape[0])]
+    finals, series = zip(*outs)
+    if isinstance(series[0], OnlineSummary):
+        return (stack_tree(finals),
+                OnlineSummary(*(np.stack(xs) for xs in zip(*series))))
+    return stack_tree(finals), stack_tree(series)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -566,8 +581,11 @@ def main(argv=None) -> None:
     policies = (list_policies() if args.policies == "all"
                 else args.policies.split(","))
     plan = ExecPlan.from_args(args)
+    # the selectors fold here, once, for the rows to report them; the
+    # sweep gets the rest of the plan
     cfg = plan.apply_to_config(SimConfig(horizon=args.horizon,
                                          delay_mode=args.delay_mode))
+    plan = dataclasses.replace(plan, delay_kernel=None, waterfill_kernel=None)
     device = resolve_device(args.device)
     n_leaf = max(4, args.hosts // 5)
     res = run_sweep(policies=policies, seeds=range(args.seeds), cfg=cfg,

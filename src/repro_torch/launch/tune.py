@@ -46,7 +46,7 @@ from repro_torch.core.types import (NUM_POLICY_WEIGHTS, WEIGHT_NAMES,
 from repro_torch.launch.dist import make_dist_fn
 from repro_torch.launch.execargs import add_exec_args
 from repro_torch.launch.sweep import (_synchronize, make_grad_fn,
-                                      make_stream_fn, make_sweep_fn)
+                                      make_grid_fn)
 
 # Default search space: the cost-model weights of the network-aware score
 # plus the co-location / consolidation trade-off.  Everything not named
@@ -153,19 +153,6 @@ def _default_scenarios() -> list[ScenarioSpec]:
             ScenarioSpec("bursty", arrival="bursty")]
 
 
-def _make_fn(cfg: SimConfig, net_spec, plan: ExecPlan):
-    """The grid runner of the search: streamed with ``plan.chunk`` or
-    ``plan.telescope`` (telescoped cells, the whole horizon one chunk
-    without ``plan.chunk``), else stacked."""
-    if plan.chunk is not None or plan.telescope:
-        return make_stream_fn(cfg, net_spec.n_hosts, net_spec.n_nodes,
-                              cfg.horizon, chunk=plan.chunk or cfg.horizon,
-                              slab=plan.slab, devices=plan.devices,
-                              overlap=plan.overlap, telescope=plan.telescope)
-    return make_sweep_fn(cfg, net_spec.n_hosts, net_spec.n_nodes,
-                         cfg.horizon, devices=plan.devices)
-
-
 def _mean_scores(fn, sims, W, rps, scenarios, seeds, objective):
     """Score a weight population: run the grid with the weights on the
     policy axis and mean the summary ``objective`` over every (scenario,
@@ -208,7 +195,7 @@ def run_tune(n_samples: int = 16, seeds: Sequence[int] = (0,),
     requires ``plan.chunk`` and refuses ``plan.telescope``; scores are
     bit-identical to the in-process streamed search."""
     plan = ExecPlan() if plan is None else plan
-    cfg = plan.apply_to_config(cfg or SimConfig())
+    cfg = cfg or SimConfig()
     device = resolve_device(device)
     scenarios = list(scenarios if scenarios is not None
                      else _default_scenarios())
@@ -219,19 +206,11 @@ def run_tune(n_samples: int = 16, seeds: Sequence[int] = (0,),
                                           n_spine=n_spine, n_leaf=n_leaf,
                                           seeds=seeds, device=device)
     if plan.procs > 1:
-        if plan.chunk is None:
-            raise ValueError("procs > 1 requires chunk (the distributed "
-                             "fabric streams slabs; there is no stacked "
-                             "multi-process path)")
-        if plan.telescope:
-            raise ValueError("telescope is not threaded through the "
-                             "multi-process fabric yet — drop procs or "
-                             "telescope")
         fn = make_dist_fn(cfg, scenarios, seeds, weights=W, n_hosts=n_hosts,
                           n_spine=n_spine, n_leaf=n_leaf, plan=plan,
                           device=device)
     else:
-        fn = _make_fn(cfg, net_spec, plan)
+        fn = make_grid_fn(cfg, net_spec.n_hosts, net_spec.n_nodes, plan)
     times = []
     for _ in range(max(reps, 1)):
         t0 = time.time()
@@ -290,7 +269,7 @@ def run_tune_grad(steps: int = 24, batch: int = 8, lr: float = 0.1,
     incumbent is scored first, so the result never ranks below it.
     ``plan.procs > 1`` raises, as in the JAX package."""
     plan = ExecPlan() if plan is None else plan
-    cfg = plan.apply_to_config(cfg or SimConfig())
+    cfg = cfg or SimConfig()
     if plan.procs > 1:
         raise ValueError("grad mode is single-process (the oracle rides "
                          "plan.chunk/devices; procs is random/grid only)")
@@ -304,7 +283,8 @@ def run_tune_grad(steps: int = 24, batch: int = 8, lr: float = 0.1,
 
     W = sample_weights(batch, seed=seed, base=base, space=space)
     validate_weights(W, "tune grad candidates: ")
-    soft = dataclasses.replace(cfg, soft_placement=True)
+    soft = plan.apply_to_config(dataclasses.replace(cfg,
+                                                    soft_placement=True))
     hard = dataclasses.replace(cfg, soft_placement=False)
     net_spec, sims, rps = build_scenarios(scenarios, soft, n_hosts=n_hosts,
                                           n_spine=n_spine, n_leaf=n_leaf,
@@ -312,7 +292,7 @@ def run_tune_grad(steps: int = 24, batch: int = 8, lr: float = 0.1,
     gfn = make_grad_fn(soft, net_spec.n_hosts, net_spec.n_nodes,
                        cfg.horizon, objective=surrogate, chunk=plan.chunk,
                        devices=plan.devices)
-    ofn = _make_fn(hard, net_spec, plan)
+    ofn = make_grid_fn(hard, net_spec.n_hosts, net_spec.n_nodes, plan)
 
     def oracle(W):
         with torch.no_grad():
@@ -384,8 +364,7 @@ def run_tune_cem(steps: int = 6, batch: int = 16, elite_frac: float = 0.25,
     so equal scores give equal populations.  It runs in-process whatever
     ``plan.procs`` says, as the JAX package's does."""
     plan = ExecPlan() if plan is None else plan
-    cfg = dataclasses.replace(plan.apply_to_config(cfg or SimConfig()),
-                              soft_placement=False)
+    cfg = dataclasses.replace(cfg or SimConfig(), soft_placement=False)
     device = resolve_device(device)
     scenarios = list(scenarios if scenarios is not None
                      else _default_scenarios())
@@ -398,7 +377,7 @@ def run_tune_cem(steps: int = 6, batch: int = 16, elite_frac: float = 0.25,
     net_spec, sims, rps = build_scenarios(scenarios, cfg, n_hosts=n_hosts,
                                           n_spine=n_spine, n_leaf=n_leaf,
                                           seeds=seeds, device=device)
-    fn = _make_fn(cfg, net_spec, plan)
+    fn = make_grid_fn(cfg, net_spec.n_hosts, net_spec.n_nodes, plan)
     rng = np.random.default_rng(seed)
     mu = base_w[idx].astype(np.float64)
     sd = (hi[idx] - lo[idx]).astype(np.float64) * init_std_frac

@@ -1,6 +1,7 @@
 """The port's kernel wrappers on the CPU (their plain versions) against the
 JAX package's kernels run as its own tests run them — Pallas in interpret
-mode — and against its jnp references; kernel selection; and, on a card,
+mode — and against its jnp references; kernel selection and the route a
+tick takes; and, on a card,
 each CUDA kernel against its plain version.  JAX is imported inside the
 tests that use it, so the ``cuda``-marked test also runs where there is a
 card and no JAX:
@@ -19,7 +20,10 @@ torch.set_num_threads(1)
 
 import numpy as np  # noqa: E402
 
-from repro_torch.kernels import LAUNCHES, resolve_kernel  # noqa: E402
+from repro_torch.kernels import (LAUNCHES, kernel_route,  # noqa: E402
+                                 resolve_kernel)
+import repro_torch.kernels.fw_minplus as fw_minplus_pkg  # noqa: E402
+import repro_torch.kernels.seg_waterfill as waterfill_pkg  # noqa: E402
 from repro_torch.kernels.fw_minplus import (floyd_warshall,  # noqa: E402
                                             floyd_warshall_ref)
 from repro_torch.kernels.fw_minplus.fw_minplus import (  # noqa: E402
@@ -201,6 +205,18 @@ def test_resolve_kernel_flags_on_cpu():
     assert resolve_kernel("auto", "cuda") is True
     assert resolve_kernel("on", "cuda") is True
     assert resolve_kernel("off", "cuda") is False
+    # the route a tick takes: the plain version on the CPU, raising alike
+    for pkg, plain in ((waterfill_pkg, seg_waterfill_ref),
+                       (fw_minplus_pkg, floyd_warshall_ref)):
+        assert kernel_route(pkg, "auto", "cpu") is plain
+        assert kernel_route(pkg, "off", "cpu") is plain
+        assert kernel_route(pkg, "off", "cuda") is plain
+        with pytest.raises(RuntimeError, match="CUDA"):
+            kernel_route(pkg, "on", "cpu")
+        with pytest.raises(ValueError):
+            kernel_route(pkg, "maybe", "cpu")
+    assert kernel_route(waterfill_pkg, "auto", "cuda") is seg_waterfill
+    assert kernel_route(fw_minplus_pkg, "on", "cuda") is floyd_warshall
 
 
 # --- on the card ------------------------------------------------------------

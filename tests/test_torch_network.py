@@ -1,6 +1,8 @@
 """repro_torch.core.network against repro.core.network on identical numpy
 inputs: topology tables, the sparse and dense flow engines, the adjacency,
-the delay refresh in both modes, and the leftover-flow regression."""
+the delay refresh in both modes, and the leftover-flow regression; and
+that the flow allocation and the delay refresh run the callables they are
+handed."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -129,6 +131,35 @@ def test_update_delay_matrix_rejects_unknown_mode():
     with pytest.raises(ValueError, match="delay mode"):
         tnet.update_delay_matrix(tnet.build_network(spec, device="cpu"),
                                  spec.n_hosts, spec.n_nodes, mode="bogus")
+
+
+def test_flow_rates_and_delay_refresh_call_what_they_are_handed():
+    """The sparse allocation and the 'fw' shortest paths are the callables
+    the caller hands in (the engine's kernel route): a spy around each
+    plain version is called once and the results are the default's bit
+    for bit."""
+    _, jn, tspec, tn = nets(20, 4, loss=0.01)
+    _, tn = with_util(jn, 5)
+    args = tuple(torch.tensor(x) for x in flows(20, 80, 6))
+    calls = []
+
+    def spy(plain):
+        def call(*a, **kw):
+            calls.append(plain.__name__)
+            return plain(*a, **kw)
+        return call
+
+    rates, util = tnet.flow_rates(tn, *args)
+    r_spy, u_spy = tnet.flow_rates(tn, *args,
+                                   allocate=spy(tnet.waterfill_sparse))
+    refresh = lambda **kw: tnet.update_delay_matrix(
+        tn, tspec.n_hosts, tspec.n_nodes, mode="fw", **kw)
+    net, net_spy = refresh(), refresh(
+        shortest_paths=spy(tnet.floyd_warshall_ref))
+    assert calls == ["waterfill_sparse", "floyd_warshall_ref"]
+    assert torch.equal(r_spy, rates) and torch.equal(u_spy, util)
+    assert torch.equal(net_spy.delay_matrix, net.delay_matrix)
+    assert torch.equal(net_spy.comm_cost, net.comm_cost)
 
 
 def many_bottleneck_net(n):
